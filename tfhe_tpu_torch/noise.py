@@ -1,0 +1,52 @@
+"""Analytic noise-variance model for the `cv` field of every sample.
+
+Counterpart of the single-key part of `tfhe_tpu/noise.py`: the same
+formulas (standard TFHE external-product and keyswitch variance bounds),
+in torus units squared, on the nominal sampling stddev.
+"""
+
+from __future__ import annotations
+
+
+def decompose_bias_var(mask_size: int, decomp_length: int, log2_base: int,
+                       poly_degree: int) -> float:
+    """Phase variance of the truncating gadget decomposition's -ulp/2 bias
+    convolved with the binary key, per CMUX step (2.5x calibrated)."""
+    bias = 2.0 ** -(decomp_length * log2_base + 1)
+    d2 = poly_degree / 4.0 + poly_degree**2 / 12.0
+    return 2.5 * mask_size * d2 * bias * bias
+
+
+def extern_product_var(mask_size: int, decomp_length: int, log2_base: int,
+                       poly_degree: int, sigma_bk: float,
+                       balanced: bool = False) -> float:
+    """Phase variance added by one TGSW external product (one CMUX step):
+    digit-times-key-noise, zero-mean gadget rounding, and the rounding bias
+    (zero for the balanced gadget)."""
+    k1 = mask_size + 1
+    e_dig2 = (1 << (2 * log2_base)) / 12.0
+    eps = 2.0 ** -(decomp_length * log2_base + 1)
+    bias = 0.0 if balanced else decompose_bias_var(
+        mask_size, decomp_length, log2_base, poly_degree)
+    return (k1 * decomp_length * poly_degree * e_dig2 * sigma_bk**2
+            + (1 + mask_size * poly_degree / 2.0) * eps * eps
+            + bias)
+
+
+def blind_rotate_var(n_steps: int, mask_size: int, decomp_length: int,
+                     log2_base: int, poly_degree: int,
+                     sigma_bk: float, balanced: bool = False) -> float:
+    """n accumulated CMUX steps."""
+    return n_steps * extern_product_var(
+        mask_size, decomp_length, log2_base, poly_degree, sigma_bk, balanced)
+
+
+def keyswitch_var(n_in: int, decomp_length: int, log2_base: int,
+                  sigma_ks: float) -> float:
+    """Keyswitch-added variance: one table sample per nonzero digit plus
+    the round-to-l*b-bits error carried through the binary in-key."""
+    base = 1 << log2_base
+    nonzero = (base - 1) / base
+    round_err = 2.0 ** -(decomp_length * log2_base + 1)
+    return (n_in * decomp_length * nonzero * sigma_ks**2
+            + n_in * 0.5 * round_err * round_err / 3.0)
