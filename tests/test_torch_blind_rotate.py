@@ -24,7 +24,8 @@ from tfhe_tpu_torch.ops.blind_rotate import (
     kernel_tables,
 )
 from tfhe_tpu_torch.ops.conv import i8_matmul
-from tfhe_tpu_torch.tgsw import decomp_offset
+from tfhe_tpu_torch.ops.karatsuba import bake_karatsuba, karatsuba_plan
+from tfhe_tpu_torch.tgsw import decomp_offset, prepare_tgsw
 
 torch.set_num_threads(2)
 
@@ -37,6 +38,8 @@ def words(rng, shape):
     (64, 2, 8, 32, 1, 5),     # the 128_fast family: k=4, M=2, b=8
     (256, 3, 7, 128, 1, 2),   # toy geometry: T=128, M=2
     (256, 3, 7, 32, 2, 2),    # M=8 at depth 2
+    (128, 2, 10, 32, 2, 2),   # the 80-bit gadget: b=10, two-limb digits
+    (64, 2, 10, 32, 1, 2),    # b=10 at depth 1
 ])
 def test_blind_rotate_matches_reference(n, l, b, t, depth, k1):
     rng = np.random.default_rng(n + depth)
@@ -93,6 +96,9 @@ def emulate_kernel(acc, e_all, bara_t, *, l, b, t, plan, balanced):
                 lhs[:, dst], lhs[:, hi] = lo, (v - lo) // 128
             else:
                 lhs[:, dst] = v
+        if b > 8:  # the kernel holds wide raw digits in shared memory only
+            assert all(lseg >= m for _, lseg, *_ in terms)
+            lhs[:, :m] = 0
         assert lhs.min() >= -128 and lhs.max() <= 127
         lhs8 = lhs.to(torch.int8).reshape(bsz, lhs_rows * pt)
         for posm in range(m):
@@ -113,19 +119,23 @@ def emulate_kernel(acc, e_all, bara_t, *, l, b, t, plan, balanced):
     (5, 256, 2, 8, 1),   # 128_fast
     (2, 256, 3, 7, 1),   # toy
     (2, 1024, 3, 7, 2),  # N=1024 at depth 2, 9 leaves
+    (2, 1024, 2, 10, 2),  # the 80-bit shape: b=10, every leaf two limbs
+    (9, 128, 2, 8, 0),   # 128_fast8: M=1, one leaf, one row, K=9
 ])
 def test_kernel_tables_emulation_matches_plain(k1, n, l, b, depth):
     rng = np.random.default_rng(k1 * n)
     n_lwe, batch, t = 2, 3, 128
     gsw = torch.from_numpy(words(rng, (n_lwe, l, k1, k1, n)))
-    bk = p_bs.bootstrap_key_from_raw(gsw, l, b, block=t, depth=depth)
-    assert bk.depth == depth
+    # the operand the compact rotation expands: the plan's own bake, which
+    # at depth 0 (M = 1) is not the dense key bootstrap_key_from_raw builds
+    plan = karatsuba_plan(n // t, depth, b)
+    baked = bake_karatsuba(prepare_tgsw(gsw, l, b), t, plan)
     acc = torch.from_numpy(words(rng, (batch, k1, n)))
     bara_t = torch.from_numpy(rng.integers(-n, n, (n_lwe, batch)).astype(np.int32))
     bara_t[:, 0] = 0
-    kw = dict(l=l, b=b, t=t, plan=bk.plan, balanced=(b == 8))
-    want = blind_rotate_plain(acc, bk.baked, bara_t, **kw)
-    got = emulate_kernel(acc, bk.baked, bara_t, **kw)
+    kw = dict(l=l, b=b, t=t, plan=plan, balanced=(b == 8))
+    want = blind_rotate_plain(acc, baked, bara_t, **kw)
+    got = emulate_kernel(acc, baked, bara_t, **kw)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
@@ -138,6 +148,7 @@ def test_kernel_refuses_cpu_tensors():
                             l=3, b=7, t=128, plan=bk.plan, balanced=False)
 
 
+@pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     """Needs a CUDA card and nvcc; chip_smoke.py runs the same comparison
     at the main path's shapes."""
@@ -146,9 +157,11 @@ def test_kernel_matches_plain_on_card():
     dev = "cuda"
     rng = np.random.default_rng(11)
     for k1, n, l, b, n_lwe, batch in [(5, 256, 2, 8, 3, 300),
-                                      (2, 256, 3, 7, 3, 17)]:
+                                      (2, 256, 3, 7, 3, 17),
+                                      (2, 1024, 2, 10, 2, 17)]:
         gsw = torch.from_numpy(words(rng, (n_lwe, l, k1, k1, n))).to(dev)
         bk = p_bs.bootstrap_key_from_raw(gsw, l, b)
+        assert bk.depth >= 1
         acc = torch.from_numpy(words(rng, (batch, k1, n))).to(dev)
         bara_t = torch.from_numpy(
             rng.integers(-n, n, (n_lwe, batch)).astype(np.int32)).to(dev)

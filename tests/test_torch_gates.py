@@ -92,14 +92,21 @@ def test_gate_nand_matches_reference(shared_keys):
 
 
 def test_unported_key_forms_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        interop.bootstrap_key_from_numpy(
-            baked=np.zeros((1, 4, 2, 2, 256), np.int8), decomp_length=1,
-            log2_base=7, polynomial_degree=128, mask_size=1, block=128,
-            depth=0, compact=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p_bs.bootstrap_key_from_raw(torch.zeros((1, 2, 2, 2, 128),
-                                                dtype=torch.int32), 2, 8)
+    """Every key form the reference builds is ported now, so neither entry
+    point raises NotImplementedError any more: `interop` takes a compact
+    key as it is, and N == T (M = 1) builds the dense depth-0 key."""
+    bk = interop.bootstrap_key_from_numpy(
+        baked=np.zeros((1, 4, 2, 2, 256), np.int8), decomp_length=1,
+        log2_base=7, polynomial_degree=128, mask_size=1, block=128,
+        depth=0, compact=True)
+    assert bk.compact and bk.depth == 0 and bk.plan.total_rows == 1
+    bk = p_bs.bootstrap_key_from_raw(torch.zeros((1, 2, 2, 2, 128),
+                                                 dtype=torch.int32), 2, 8)
+    assert not bk.compact and bk.depth == 0
+    assert tuple(bk.baked.shape) == (1, 2 * 4 * 128, 2 * 4 * 128)
+    for path in ("tfhe_tpu_torch/bootstrap.py", "tfhe_tpu_torch/interop.py"):
+        with open(os.path.join(REPO, path)) as f:
+            assert "NotImplementedError" not in f.read(), path
 
 
 GATES_2IN = [
@@ -143,7 +150,9 @@ def test_port_imports_no_jax():
     code = (
         "import sys, importlib\n"
         "import tfhe_tpu_torch\n"
-        "for m in ('interop', 'ops.blind_rotate', 'ops._build', 'gates'):\n"
+        "for m in ('interop', 'ops.blind_rotate', 'ops._build', 'gates',"
+        "          'tuning', 'ops.compact', 'ops.cmux_step', 'ops.conv',"
+        "          'ops.karatsuba', 'tgsw'):\n"
         "    importlib.import_module('tfhe_tpu_torch.' + m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'tfhe_tpu', 'triton')]\n"

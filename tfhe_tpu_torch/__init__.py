@@ -1,12 +1,14 @@
 """tfhe_tpu_torch: the PyTorch and CUDA port of tfhe_tpu.
 
-TFHE gate bootstrapping on torch tensors, with the blind rotation as a
-hand-written CUDA kernel for Hopper (ops/blind_rotate.py,
-csrc/blind_rotate.cu). Module names mirror `tfhe_tpu`; every word of every
+TFHE gate bootstrapping on torch tensors, with the blind rotation of every
+single-key form of the bootstrap key (Karatsuba-baked, compact, dense) as
+hand-written CUDA kernels for Hopper (ops/blind_rotate.py, ops/compact.py,
+ops/cmux_step.py, csrc/). Module names mirror `tfhe_tpu`; every word of every
 ciphertext and key equals the reference's for the same inputs. This package
 never imports JAX.
 """
 
+from . import tuning
 from .params import (
     SchemeParameters,
     tfhe_parameters_80,

@@ -20,7 +20,10 @@
 // The plan arrives as tables (tfhe_tpu_torch/ops/blind_rotate.py:
 // kernel_tables): combo writes for step 4, and per output block a list of
 // terms sign * 2^shift * (digit segments . key segments) for steps 5-7.
-// All mod-2^32 arithmetic is done in uint32_t, where wraparound is defined.
+// The kernels themselves are in cmux_kernels.cuh, shared with the compact
+// and dense entry points. Raw digits of a base above 2^8 do not fit a byte:
+// they are held as int16 in shared memory, and every leaf then reads
+// two-limb combos (the plan gives each leaf shifts (0, 7) at such a base).
 //
 // Where the accumulator lives. The TPU kernels keep a batch tile's
 // accumulator resident in VMEM for all n steps. An SM has 228 KB of shared
@@ -42,227 +45,7 @@
 // below wgmma's rate. Moving to wgmma with TMA, and computing each dot once,
 // is later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kT = 128;         // Toeplitz block size
-constexpr int kBM = 64;         // dot tile rows (ciphertexts)
-constexpr int kWB = 32;         // dot tile width in coefficients, per limb
-constexpr int kBN = 4 * kWB;    // dot tile columns: 4 limbs x kWB
-constexpr int kKC = 64;         // contraction chunk staged in shared memory
-constexpr int kLDS = kKC + 16;  // padded smem row: conflict-free fragments
-constexpr int kThreads = 256;
-
-struct Params {
-  int batch, k1, n, l, b, m, pt, lhs_stride, cols, offset;
-};
-
-// Steps 1-4 for one ciphertext row per block.
-__global__ void __launch_bounds__(kThreads)
-rotate_decompose_kernel(const int32_t* __restrict__ acc,
-                        const int32_t* __restrict__ bara_step,
-                        int8_t* __restrict__ lhs, Params p,
-                        const int32_t* __restrict__ combos, int n_combos) {
-  extern __shared__ int8_t dig[];  // m * pt bytes: the raw digit blocks
-  const int row = blockIdx.x;
-  const int n = p.n;
-  const uint32_t two_n_mask = 2u * (uint32_t)n - 1u;
-  const uint32_t s = (uint32_t)bara_step[row] & two_n_mask;
-  const int32_t* a = acc + (size_t)row * p.k1 * n;
-  const uint32_t digit_mask = (1u << p.b) - 1u;
-  const int half = 1 << (p.b - 1);
-
-  for (int idx = threadIdx.x; idx < p.k1 * n; idx += blockDim.x) {
-    const int j = idx / n;
-    const int r = idx - j * n;
-    const int32_t* poly = a + (size_t)j * n;
-    // (X^s * poly)[r] = doubled[(r - s) mod 2N], doubled = [poly, -poly]
-    const uint32_t src = ((uint32_t)r - s) & two_n_mask;
-    const uint32_t rot = src < (uint32_t)n
-                             ? (uint32_t)poly[src]
-                             : 0u - (uint32_t)poly[src - n];
-    const uint32_t shifted = rot - (uint32_t)poly[r] + (uint32_t)p.offset;
-    const int i = r / kT;
-    const int u = r - i * kT;
-    int8_t* out = dig + (size_t)i * p.pt + (size_t)j * p.l * kT + u;
-    for (int il = 0; il < p.l; ++il) {
-      // The mask keeps only bits the shift brought down, so a logical
-      // shift gives the same digit as the reference's arithmetic one.
-      const uint32_t d = (shifted >> (32 - (il + 1) * p.b)) & digit_mask;
-      out[il * kT] = (int8_t)((int)d - half);
-    }
-  }
-  __syncthreads();
-
-  int8_t* dst_row = lhs + (size_t)row * p.lhs_stride;
-  const int raw_words = p.m * p.pt / 4;
-  for (int x = threadIdx.x; x < raw_words; x += blockDim.x)
-    reinterpret_cast<int32_t*>(dst_row)[x] =
-        reinterpret_cast<const int32_t*>(dig)[x];
-
-  for (int c = 0; c < n_combos; ++c) {
-    const int dst = combos[4 * c + 0];
-    const uint32_t src_mask = (uint32_t)combos[4 * c + 1];
-    const int two_limb = combos[4 * c + 2];
-    const int hi_dst = combos[4 * c + 3];
-    for (int x = threadIdx.x; x < p.pt; x += blockDim.x) {
-      int v = 0;
-      for (int blk = 0; blk < p.m; ++blk)
-        if ((src_mask >> blk) & 1u) v += dig[blk * p.pt + x];
-      if (!two_limb) {
-        dst_row[(size_t)dst * p.pt + x] = (int8_t)v;
-      } else {
-        const int lo = ((v & 127) ^ 64) - 64;  // in [-64, 63]
-        const int hi = (v - lo) / 128;         // exact: v - lo is 128 * hi
-        dst_row[(size_t)dst * p.pt + x] = (int8_t)lo;
-        dst_row[(size_t)hi_dst * p.pt + x] = (int8_t)hi;
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Steps 5-7 for one (column tile, output block, batch tile). The column
-// tile is one output polynomial k and kWB coefficients, for all 4 key limbs,
-// so the limb recombination happens in registers. 8 warps: 4 along the
-// rows (16 each) by 2 along the coefficients (16 each, all 4 limbs).
-__global__ void __launch_bounds__(kThreads)
-leaf_dots_kernel(int32_t* __restrict__ acc, const int8_t* __restrict__ lhs,
-                 const int8_t* __restrict__ key_step,
-                 const int32_t* __restrict__ terms,
-                 const int32_t* __restrict__ term_start, Params p) {
-  __shared__ __align__(16) int8_t As[kBM * kLDS];
-  __shared__ __align__(16) int8_t Bs[kBN * kLDS];
-
-  const int tiles_per_poly = kT / kWB;
-  const int k = blockIdx.x / tiles_per_poly;
-  const int wt = blockIdx.x - k * tiles_per_poly;
-  const int posm = blockIdx.y;
-  const int row0 = blockIdx.z * kBM;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wr = warp % 4, wc = warp / 4;
-  const int g = lane >> 2, tig = lane & 3;
-
-  uint32_t total[8][4];  // [limb * 2 + half][fragment register]
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) total[i][r] = 0u;
-
-  for (int ti = term_start[posm]; ti < term_start[posm + 1]; ++ti) {
-    const int32_t* tm = terms + 6 * ti;
-    const int lhs_col0 = tm[1] * p.pt;
-    const int e_row0 = tm[2] * p.pt;
-    const int width = tm[3] * p.pt;
-    const int shift = tm[4];
-    const int sign = tm[5];
-
-    int part[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) part[i][r] = 0;
-
-    for (int kc = 0; kc < width; kc += kKC) {
-      {  // digit tile: kBM rows x kKC bytes, 16 bytes per thread
-        const int r = tid / 4, c16 = (tid % 4) * 16;
-        const int grow = row0 + r;
-        int4 v = make_int4(0, 0, 0, 0);
-        if (grow < p.batch)
-          v = *reinterpret_cast<const int4*>(
-              lhs + (size_t)grow * p.lhs_stride + lhs_col0 + kc + c16);
-        *reinterpret_cast<int4*>(As + r * kLDS + c16) = v;
-      }
-      // key tile: kKC rows x kBN columns, stored transposed (column-major
-      // for the mma B operand) by 4x4 byte transposes
-      for (int q = tid; q < (kKC / 4) * (kBN / 4); q += kThreads) {
-        const int ng = (q % 8) + 8 * ((q / 32) % 4);
-        const int kg = ((q / 8) % 4) + 4 * (q / 128);
-        const int n0 = ng * 4;
-        const int limb = n0 / kWB;
-        const int w = n0 - limb * kWB;
-        const size_t col = (size_t)(k * 4 + limb) * kT + wt * kWB + w;
-        const int8_t* src =
-            key_step + (size_t)(e_row0 + kc + kg * 4) * p.cols + col;
-        const uint32_t r0 = *reinterpret_cast<const uint32_t*>(src);
-        const uint32_t r1 = *reinterpret_cast<const uint32_t*>(src + p.cols);
-        const uint32_t r2 =
-            *reinterpret_cast<const uint32_t*>(src + 2 * (size_t)p.cols);
-        const uint32_t r3 =
-            *reinterpret_cast<const uint32_t*>(src + 3 * (size_t)p.cols);
-        const uint32_t lo01 = __byte_perm(r0, r1, 0x5140);
-        const uint32_t hi01 = __byte_perm(r0, r1, 0x7362);
-        const uint32_t lo23 = __byte_perm(r2, r3, 0x5140);
-        const uint32_t hi23 = __byte_perm(r2, r3, 0x7362);
-        int8_t* dst = Bs + n0 * kLDS + kg * 4;
-        *reinterpret_cast<uint32_t*>(dst) = __byte_perm(lo01, lo23, 0x5410);
-        *reinterpret_cast<uint32_t*>(dst + kLDS) =
-            __byte_perm(lo01, lo23, 0x7632);
-        *reinterpret_cast<uint32_t*>(dst + 2 * kLDS) =
-            __byte_perm(hi01, hi23, 0x5410);
-        *reinterpret_cast<uint32_t*>(dst + 3 * kLDS) =
-            __byte_perm(hi01, hi23, 0x7632);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kKC; kk += 32) {
-        const int8_t* ap = As + (wr * 16 + g) * kLDS + kk + tig * 4;
-        const uint32_t a0 = *reinterpret_cast<const uint32_t*>(ap);
-        const uint32_t a1 = *reinterpret_cast<const uint32_t*>(ap + 8 * kLDS);
-        const uint32_t a2 = *reinterpret_cast<const uint32_t*>(ap + 16);
-        const uint32_t a3 =
-            *reinterpret_cast<const uint32_t*>(ap + 8 * kLDS + 16);
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int ncol = (nt >> 1) * kWB + wc * 16 + (nt & 1) * 8 + g;
-          const int8_t* bp = Bs + ncol * kLDS + kk + tig * 4;
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bp);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bp + 16);
-          mma_s8(part[nt], a0, a1, a2, a3, b0, b1);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const uint32_t v = (uint32_t)part[i][r] << shift;
-        total[i][r] = sign > 0 ? total[i][r] + v : total[i][r] - v;
-      }
-  }
-
-  // limb recombination and the in-place add into acc[:, k, posm*T + w]
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      uint32_t word = 0u;
-#pragma unroll
-      for (int limb = 0; limb < 4; ++limb)
-        word += total[limb * 2 + h][r] << (8 * limb);
-      const int row = row0 + wr * 16 + g + (r >= 2 ? 8 : 0);
-      const int w = wt * kWB + wc * 16 + h * 8 + tig * 2 + (r & 1);
-      if (row < p.batch) {
-        int32_t* dst = acc + ((size_t)row * p.k1 + k) * p.n + posm * kT + w;
-        *dst = (int32_t)((uint32_t)*dst + word);
-      }
-    }
-}
-
-}  // namespace
+#include "cmux_kernels.cuh"
 
 extern "C" {
 
@@ -275,31 +58,15 @@ int tfhe_blind_rotate(int32_t* acc, const int8_t* key, const int32_t* bara_t,
                       int n_steps, int lhs_rows, int total_rows, int offset,
                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Params p;
-  p.batch = batch;
-  p.k1 = k1;
-  p.n = n;
-  p.l = l;
-  p.b = b;
-  p.m = m;
-  p.pt = k1 * l * kT;
-  p.lhs_stride = lhs_rows * p.pt;
-  p.cols = k1 * 4 * kT;
-  p.offset = offset;
+  const Params p = make_params(batch, k1, n, l, b, m, lhs_rows, offset);
   const size_t key_step = (size_t)total_rows * p.pt * p.cols;  // > 2^31
-  const size_t dig_smem = (size_t)m * p.pt;
-  const dim3 dots_grid(k1 * (kT / kWB), m, (batch + kBM - 1) / kBM);
   for (int s = 0; s < n_steps; ++s) {
-    rotate_decompose_kernel<<<batch, kThreads, dig_smem, st>>>(
-        acc, bara_t + (size_t)s * batch, lhs, p, combos, n_combos);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    leaf_dots_kernel<<<dots_grid, kThreads, 0, st>>>(
-        acc, lhs, key + (size_t)s * key_step, terms, term_start, p);
-    err = cudaGetLastError();
+    cudaError_t err = launch_step(acc, key + (size_t)s * key_step,
+                                  bara_t + (size_t)s * batch, lhs, combos,
+                                  n_combos, terms, term_start, p, st);
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 const char* tfhe_error_string(int err) {

@@ -35,14 +35,11 @@ def bootstrap_key_from_numpy(*, baked: np.ndarray, decomp_length: int,
                              noise_stddev: float = 0.0,
                              balanced: bool = False, compact: bool = False,
                              device="cpu") -> BootstrapKey:
-    """The fields of a reference BootstrapKey; Karatsuba-baked keys only."""
-    if compact or depth == 0:
-        raise NotImplementedError(
-            "compact and depth-0 bootstrap keys are not ported yet: "
-            "ROADMAP.md queue 1, items 6 and 7")
+    """The fields of a reference BootstrapKey, in any of its three forms
+    (Karatsuba-baked, dense depth-0, compact)."""
     return BootstrapKey(_t(baked, torch.int8, device), decomp_length,
                         log2_base, polynomial_degree, mask_size, block, depth,
-                        float(noise_stddev), bool(balanced))
+                        float(noise_stddev), bool(balanced), bool(compact))
 
 
 def keyswitch_key_from_numpy(*, table_limbs: np.ndarray, n_in: int,

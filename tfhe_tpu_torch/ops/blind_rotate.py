@@ -148,58 +148,84 @@ def blind_rotate_plain(acc: torch.Tensor, e_all: torch.Tensor,
     return acc
 
 
+def int_table(rows, device) -> torch.Tensor:
+    """A list of int rows as one flat int32 tensor on `device`."""
+    flat = [v for row in rows for v in row] or [0]
+    return torch.tensor(flat, dtype=torch.int32, device=device)
+
+
 @functools.lru_cache(maxsize=None)
-def _device_tables(plan: KaratsubaPlan, p: int, t: int, device: str):
+def device_tables(plan: KaratsubaPlan, p: int, t: int, device: str):
     combos, terms, term_start, lhs_rows = kernel_tables(plan, p, t)
-
-    def as_tensor(rows):
-        flat = [v for row in rows for v in row] or [0]
-        return torch.tensor(flat, dtype=torch.int32, device=device)
-
-    return (as_tensor(combos), len(combos), as_tensor(terms),
-            torch.tensor(term_start, dtype=torch.int32, device=device),
-            lhs_rows)
+    return (int_table(combos, device), len(combos), int_table(terms, device),
+            int_table([term_start], device), lhs_rows)
 
 
-def _check(cond: bool, what: str):
+def require(cond: bool, what: str, who: str):
     if not cond:
-        raise ValueError(f"blind_rotate_kernel: {what}")
+        raise ValueError(f"{who}: {what}")
+
+
+def check_rotation_args(who: str, acc: torch.Tensor, key: torch.Tensor,
+                        bara_t: torch.Tensor, l: int, b: int, t: int,
+                        plan: KaratsubaPlan):
+    """What every whole-rotation kernel wrapper requires of its arguments;
+    returns (batch, k1, N, M, P*T). `key` is the baked or the compact key."""
+    def check(cond, what):
+        require(cond, what, who)
+
+    check(acc.dim() == 3 and key.dim() >= 3 and bara_t.dim() == 2,
+          "acc must be [B, K, N], bara_t [n, B]")
+    check(acc.is_cuda and key.is_cuda and bara_t.is_cuda,
+          "tensors must be on a CUDA device")
+    check(acc.device == key.device == bara_t.device,
+          "tensors must share one device")
+    check(acc.dtype == torch.int32 and bara_t.dtype == torch.int32
+          and key.dtype == torch.int8, "dtypes must be int32/int8/int32")
+    check(acc.is_contiguous() and key.is_contiguous()
+          and bara_t.is_contiguous(), "tensors must be contiguous")
+    check(t == KERNEL_BLOCK, f"block T must be {KERNEL_BLOCK}, got {t}")
+    check(1 <= b <= 15 and l * b <= 32,
+          f"gadget l={l}, b={b} does not fit 32-bit words and int16 digits")
+    bsz, k1, n = acc.shape
+    m = n // t
+    pt = k1 * l * t
+    check(n == m * t and n & (n - 1) == 0 and plan.m == m,
+          f"plan m={plan.m} does not fit N={n} (a power of two)")
+    check(m <= 31, "at most 31 blocks per polynomial")
+    # raw digits of one row in shared memory: bytes for b <= 8, else int16
+    check(m * pt * (1 if b <= 8 else 2) <= _MAX_DIGIT_SMEM,
+          "one row's digits exceed 48 KB")
+    check(tuple(bara_t.shape) == (key.shape[0], bsz),
+          f"bara_t must be [{key.shape[0]}, {bsz}], "
+          f"got {tuple(bara_t.shape)}")
+    return bsz, k1, n, m, pt
+
+
+def raise_on_error(who: str, lib, err: int):
+    if err != 0:
+        raise RuntimeError(f"{who}: CUDA error {err} "
+                           f"({lib.tfhe_error_string(err).decode()})")
 
 
 def blind_rotate_kernel(acc: torch.Tensor, e_all: torch.Tensor,
                         bara_t: torch.Tensor, *, l: int, b: int, t: int,
                         plan: KaratsubaPlan, balanced: bool) -> torch.Tensor:
     """Whole blind rotation through the CUDA kernel; the same contract as
-    `blind_rotate_plain`. Takes T = 128 and b <= 8 only. Launches on the
-    current stream and does not synchronise."""
+    `blind_rotate_plain`. Takes T = 128 only. Launches on the current
+    stream and does not synchronise."""
     from . import _build
 
-    _check(acc.is_cuda and e_all.is_cuda and bara_t.is_cuda,
-           "tensors must be on a CUDA device")
-    _check(acc.device == e_all.device == bara_t.device,
-           "tensors must share one device")
-    _check(acc.dtype == torch.int32 and bara_t.dtype == torch.int32
-           and e_all.dtype == torch.int8, "dtypes must be int32/int8/int32")
-    _check(acc.is_contiguous() and e_all.is_contiguous()
-           and bara_t.is_contiguous(), "tensors must be contiguous")
-    _check(t == KERNEL_BLOCK, f"block T must be {KERNEL_BLOCK}, got {t}")
-    _check(1 <= b <= 8, f"log2_base must be in [1, 8], got {b}")
-    bsz, k1, n = acc.shape
-    m = n // t
-    p = k1 * l
-    pt = p * t
-    _check(n == m * t and plan.m == m, f"plan m={plan.m} does not fit N={n}")
-    _check(m <= 31, "at most 31 blocks per polynomial")
-    _check(m * pt <= _MAX_DIGIT_SMEM, "one row's digits exceed 48 KB")
+    who = "blind_rotate_kernel"
+    bsz, k1, n, m, pt = check_rotation_args(who, acc, e_all, bara_t, l, b, t,
+                                            plan)
     n_steps = e_all.shape[0]
-    _check(tuple(e_all.shape) == (n_steps, plan.total_rows * pt, k1 * 4 * t),
-           f"baked key shape {tuple(e_all.shape)} does not fit the plan")
-    _check(tuple(bara_t.shape) == (n_steps, bsz),
-           f"bara_t must be [{n_steps}, {bsz}], got {tuple(bara_t.shape)}")
+    require(tuple(e_all.shape) == (n_steps, plan.total_rows * pt, k1 * 4 * t),
+            f"baked key shape {tuple(e_all.shape)} does not fit the plan", who)
 
     lib = _build.load()
-    combos, n_combos, terms, term_start, lhs_rows = _device_tables(
-        plan, p, t, str(acc.device))
+    combos, n_combos, terms, term_start, lhs_rows = device_tables(
+        plan, k1 * l, t, str(acc.device))
     out = acc.clone()
     lhs = torch.empty((bsz, lhs_rows * pt), dtype=torch.int8,
                       device=acc.device)
@@ -211,10 +237,7 @@ def blind_rotate_kernel(acc: torch.Tensor, e_all: torch.Tensor,
             term_start.data_ptr(), bsz, k1, n, l, b, m, n_steps, lhs_rows,
             plan.total_rows, decomp_offset(l, b, balanced),
             ctypes.c_void_p(stream))
-        if err != 0:
-            raise RuntimeError(
-                f"blind_rotate_kernel: CUDA error {err} "
-                f"({lib.tfhe_error_string(err).decode()})")
+        raise_on_error(who, lib, err)
         blind_rotate_kernel.launches += 1
     return out
 

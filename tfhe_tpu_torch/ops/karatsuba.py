@@ -110,6 +110,13 @@ def _block_window_index(n: int, t: int, device) -> torch.Tensor:
     return torch.remainder(d * t + w - u, 2 * n)
 
 
+def entry_rows(plan: KaratsubaPlan) -> tuple:
+    """The baked key's super-block rows in storage order: per leaf, its
+    entries REVERSED. Row r of the bake holds the sum of the Toeplitz
+    blocks named by entry_rows(plan)[r]."""
+    return tuple(entry for lf in plan.leaves for entry in reversed(lf.entries))
+
+
 def _bake_steps(limbs: torch.Tensor, t: int, plan: KaratsubaPlan,
                 idx: torch.Tensor) -> torch.Tensor:
     """[c, 4, P, K, 2N] int8 -> [c, R*P*T, K*4*T] int8 (see bake_karatsuba)."""
@@ -119,12 +126,11 @@ def _bake_steps(limbs: torch.Tensor, t: int, plan: KaratsubaPlan,
     words = l32[:, 0] + (l32[:, 1] << 8) + (l32[:, 2] << 16) + (l32[:, 3] << 24)
     blocks = words[..., idx.reshape(-1)].reshape(c, p, k, m, t, t)
     rows = []
-    for lf in plan.leaves:
-        for entry in reversed(lf.entries):
-            comb = blocks[:, :, :, entry[0]]
-            for d in entry[1:]:
-                comb = comb + blocks[:, :, :, d]  # int32 wraparound: exact
-            rows.append(comb)  # [c, P, K, T, T]
+    for entry in entry_rows(plan):
+        comb = blocks[:, :, :, entry[0]]
+        for d in entry[1:]:
+            comb = comb + blocks[:, :, :, d]  # int32 wraparound: exact
+        rows.append(comb)  # [c, P, K, T, T]
     e = split_torus_limbs(torch.stack(rows, dim=1))  # [4, c, R, P, K, T, T]
     e = e.permute(1, 2, 3, 5, 4, 0, 6)  # [c, R, P, T(u), K, 4, T(w)]
     return e.reshape(c, plan.total_rows * p * t, k * 4 * t)
@@ -153,6 +159,39 @@ def bake_karatsuba(limbs_doubled: torch.Tensor, t: int, plan: KaratsubaPlan,
         out[s0:s0 + chunk] = _bake_steps(limbs_doubled[s0:s0 + chunk], t,
                                          plan, idx)
     return out
+
+
+def expand_karatsuba_step(limbs_step: torch.Tensor, t: int,
+                          plan: KaratsubaPlan) -> torch.Tensor:
+    """Gate-time expansion of ONE step's compact key into the leaf layout.
+
+    limbs_step: int8[4, P, K, 2N] (one step of `prepare_tgsw`). Returns
+    int8[total_rows*P*T, K*4*T], byte-equal to that step of
+    `bake_karatsuba`: the doubled words are rebuilt from the four bytes,
+    each entry's 2T-word windows (window d starts at d*T - T, mod 2N) are
+    summed in int32 with wraparound, re-split into balanced bytes, and the
+    Toeplitz block W[u, w] = C[T + w - u] is gathered from the window.
+    """
+    _, p, k, n2 = limbs_step.shape
+    n = n2 // 2
+    if plan.m != n // t:
+        raise ValueError(f"plan has m={plan.m}, key has N/T={n // t}")
+    dev = limbs_step.device
+    l32 = limbs_step.to(torch.int32)
+    words = l32[0] + (l32[1] << 8) + (l32[2] << 16) + (l32[3] << 24)
+    j = torch.arange(2 * t, device=dev)
+    combos = []
+    for entry in entry_rows(plan):
+        comb = words[..., torch.remainder(entry[0] * t - t + j, n2)]
+        for d in entry[1:]:
+            comb = comb + words[..., torch.remainder(d * t - t + j, n2)]
+        combos.append(comb)  # [P, K, 2T] int32, wraparound sums: exact
+    lb = split_torus_limbs(torch.stack(combos))  # [4, R, P, K, 2T] int8
+    u = torch.arange(t, device=dev)[:, None]
+    w = torch.arange(t, device=dev)[None, :]
+    e = lb[..., (t + w - u).reshape(-1)]  # [4, R, P, K, T(u)*T(w)]
+    e = e.reshape(4, plan.total_rows, p, k, t, t).permute(1, 2, 4, 3, 0, 5)
+    return e.reshape(plan.total_rows * p * t, k * 4 * t)
 
 
 def _digit_combos(digits: torch.Tensor, plan: KaratsubaPlan, t: int) -> list:

@@ -1,6 +1,7 @@
 """TGSW encryption and the signed gadget decomposition.
 
-Counterpart of `tfhe_tpu/tgsw.py` as far as the gate path needs it. A TGSW
+Counterpart of `tfhe_tpu/tgsw.py` as far as the gate path needs it, with
+the prepared external product that a compact key falls back on. A TGSW
 sample is one int32 tensor [..., l, k+1, k+1, N] (decomposition row, TLWE
 row, polynomial index, coefficient).
 """
@@ -12,7 +13,7 @@ import functools
 import torch
 
 from .ops import conv
-from .tlwe import tlwe_encrypt_zero, tlwe_encrypt_zero_core
+from .tlwe import TLweSample, tlwe_encrypt_zero, tlwe_encrypt_zero_core
 
 
 def _wrap_i32(v: int) -> int:
@@ -108,3 +109,19 @@ def prepare_tgsw(gsw: torch.Tensor, decomp_length: int,
     shape = moved.shape
     flat = moved.reshape(shape[:-4] + (shape[-4] * shape[-3],) + shape[-2:])
     return conv.prepare_shared_torus(flat)
+
+
+def tgsw_extern_mul_prepared(accum: TLweSample, gsw_limbs: torch.Tensor,
+                             decomp_length: int, log2_base: int,
+                             balanced: bool = False) -> TLweSample:
+    """External product gsw (x) accum against a prepared TGSW operand.
+
+    accum.a: int32[B, k+1, N] (exactly one batch dim); gsw_limbs:
+    int8[4, P, k+1, 2N] from `prepare_tgsw`.
+    out[c] = sum_{j,i} conv(digits[j, i], gsw[i, j, c]).
+    """
+    bsz, kp1, n = accum.a.shape
+    digits = decompose(accum.a, decomp_length, log2_base, balanced)
+    digits = digits.reshape(bsz, kp1 * decomp_length, n)  # j-major
+    out = conv.poly_mul_prepared(digits, gsw_limbs, log2_base - 1)
+    return TLweSample(out, accum.cv)
