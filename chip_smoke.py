@@ -17,8 +17,13 @@ back):
    the compact rotation (128_fast8 with B = 256 and 300, 128_fast at depth
    1, N = 1024 at depth 2); the dense step's two kernels and its rotation
    (128_fast at depth 0 with B = 256 and 300, 128_fast8's M = 1, the
-   80-bit shape with two digit limbs). Then each kernel timed at B = 4096
-   over 8 steps beside its plain version, with its bound from the shapes.
+   80-bit shape with two digit limbs); the three multi-key kernels (one
+   sparse step, a chunk of steps, a party's loop from its compact limbs)
+   and the sparse expansion at N = 1024, depth 2 with the plans of 2 parties
+   (both parties, l = 5 b = 6 and l = 4 b = 7), 4 parties and 8 parties
+   (sparse-stored, party 5, triangular and full), B = 70. Then each kernel
+   timed at B = 4096 over 8 steps beside its plain version, with its bound
+   from the shapes.
 4. Main path, baked: `make_key_pair(tfhe_parameters_128_fast)` on the card,
    `encrypt` of 4096 bits, 5 chained `gate_nand` layers, `decrypt`;
    requires 4096/4096 correct and one kernel launch per layer, and the
@@ -33,7 +38,17 @@ back):
    device bytes.
 7. The default preset (`make_key_pair(gen)`: 80-bit, b = 10) on the card:
    one NAND layer of 256, all correct.
-8. The kernels' JSON line, the card's line, then the result line
+8. Multi-key main path: the ceremony of
+   `mktfhe_parameters_2party_lownoise` on the card (n = 500, N = 1024,
+   l = 5, b = 6), `mk_encrypt` of 4096 bits, 2 chained `mk_gate_nand`
+   layers on the default (compact) path, `mk_decrypt`: 4096/4096 required,
+   one compact-rotation launch per party and layer; one more layer under
+   `torch.profiler`; then one layer each on the chunk and per-step paths,
+   bit-equal to the compact one's.
+9. `mktfhe_parameters_4party`, one NAND layer of 1024, and
+   `mktfhe_parameters_8party` (sparse-stored key), one layer of 256, all
+   correct.
+10. The kernels' JSON line, the card's line, then the result line
    {"ok": true, "device": {...}}.
 """
 
@@ -295,7 +310,125 @@ def phase3(gen, card) -> Kernels:
                  for s in range(steps)],
         bound_ms(steps * nbytes(digits, acc, acc, key[0]), steps * dots,
                  PEAK_INT8_OPS_PER_S), card)
+    phase3_mk(ks, gen, card)
     return ks
+
+
+MK_SRC = "tfhe_tpu/ops/pallas_cmux.py"
+MK_N = 1024  # every multi-key preset's ring degree: M = 8, depth 2
+
+
+def mk_case(gen, parties, party, l, b, n_steps, batch, progressive=True,
+            sparse=False):
+    """Random accumulator, nz-selected compact limbs and bara for one
+    party's plan; the limbs are cut from a dense prepared operand or from a
+    sparse-stored one, as `mk_blind_rotate` cuts them."""
+    from tfhe_tpu_torch.mk.internals import active_plan
+    from tfhe_tpu_torch.ops.karatsuba import karatsuba_plan, select_nz_limbs
+
+    plan = karatsuba_plan(MK_N // T, 2, b)
+    nz_orig, nz_kern, sel, k_act = active_plan(party, parties, progressive)
+    k1 = parties + 1
+    if sparse:
+        limbs = rand_i8(gen, (n_steps, 4, 3 * parties + 1, l, 2 * MK_N))
+        if sel is not None:
+            limbs = limbs[:, :, list(sel)].contiguous()
+    else:
+        dense = rand_i8(gen, (n_steps, 4, k1 * l, k1, 2 * MK_N))
+        limbs = select_nz_limbs(dense, nz_orig, l)
+    kw = dict(l=l, b=b, t=T, plan=plan, nz=nz_kern, balanced=False)
+    return (rand_i32(gen, (batch, k_act, MK_N)), limbs,
+            rand_bara(gen, MK_N, n_steps, batch), kw)
+
+
+def phase3_mk(ks, gen, card):
+    """The three multi-key kernels and the sparse expansion against their
+    plain versions, then their times at the 2-party lownoise shape."""
+    from tfhe_tpu_torch.ops import mk_cmux
+    from tfhe_tpu_torch.ops.karatsuba import expand_karatsuba_sparse
+
+    ks.entry("cmux_step_sparse", "mk_cmux.cu", f"{MK_SRC}:950")
+    ks.entry("mk_blind_rotate_chunk", "mk_cmux.cu", f"{MK_SRC}:1006")
+    ks.entry("mk_blind_rotate_compact", "mk_cmux.cu", f"{MK_SRC}:1150")
+
+    def expand_all(limbs, kw, fn):
+        ekw = dict(t=T, plan=kw["plan"], nz=kw["nz"], l=kw["l"])
+        return torch.stack([fn(step, **ekw) for step in limbs])
+
+    cases = [  # parties, party, l, b, steps, batch, progressive, sparse
+        (2, 0, 5, 6, 3, 70, True, False),
+        (2, 1, 5, 6, 3, 70, True, False),
+        (2, 0, 4, 7, 3, 70, True, False),
+        (2, 1, 4, 7, 3, 70, True, False),
+        (4, 2, 5, 6, 3, 70, True, False),
+        (4, 3, 5, 6, 2, 70, False, False),
+        (8, 5, 8, 4, 2, 70, True, True),
+        (8, 5, 8, 4, 2, 70, False, True),  # K = 9, P = 72: 73,728 digit bytes
+    ]
+    for parties, party, l, b, n_steps, batch, progressive, sparse in cases:
+        acc, limbs, bara_t, kw = mk_case(gen, parties, party, l, b, n_steps,
+                                         batch, progressive, sparse)
+        what = (f"{parties} parties, party {party}, l={l} b={b} "
+                f"K={acc.shape[1]} NZ={len(kw['nz'])} steps={n_steps} "
+                f"B={batch}" + (" sparse-stored" if sparse else "")
+                + ("" if progressive else " full plan"))
+        e_chunk = expand_all(
+            limbs, kw, lambda st, **ekw: mk_cmux.expand_sparse(
+                st, preselected=True, **ekw))
+        ks.compare("expand_karatsuba_step", what + " (sparse expansion)",
+                   e_chunk, expand_all(
+                       limbs, kw, lambda st, t, plan, nz, l:
+                       expand_karatsuba_sparse(st, t, plan, nz, l, True)))
+        ks.compare("cmux_step_sparse", what,
+                   mk_cmux.cmux_step_sparse_kernel(acc, e_chunk[1], bara_t[1],
+                                                   **kw),
+                   mk_cmux.cmux_step_sparse_plain(acc, e_chunk[1], bara_t[1],
+                                                  **kw))
+        ks.compare("mk_blind_rotate_chunk", what,
+                   mk_cmux.mk_blind_rotate_chunk_kernel(acc, e_chunk, bara_t,
+                                                        **kw),
+                   mk_cmux.mk_blind_rotate_chunk_plain(acc, e_chunk, bara_t,
+                                                       **kw))
+        ks.compare("mk_blind_rotate_compact", what,
+                   mk_cmux.mk_blind_rotate_compact_kernel(acc, limbs, bara_t,
+                                                          **kw),
+                   mk_cmux.mk_blind_rotate_compact_plain(acc, limbs, bara_t,
+                                                         **kw))
+        del e_chunk
+
+    # timings: party 1's plan of 2-party lownoise (K = 3, NZ = 7), B = 4096
+    steps = TIMED_STEPS
+    acc, limbs, bara_t, kw = mk_case(gen, 2, 1, 5, 6, steps, BATCH)
+    e_chunk = expand_all(limbs, kw, lambda st, **ekw: mk_cmux.expand_sparse(
+        st, preselected=True, **ekw))
+    nzn, lt = len(kw["nz"]), kw["l"] * T
+    # each of the plan's digit x key tile products once: [B, l*T] x [l*T, 4T]
+    dots = 2.0 * kw["plan"].macs_superblocks * nzn * BATCH * lt * 4 * T * steps
+    what = f"2-party lownoise party 1 (K=3, NZ=7) B={BATCH}, {steps} steps"
+    ks.timed(
+        "cmux_step_sparse", what + " (one call each)",
+        lambda: [mk_cmux.cmux_step_sparse_kernel(acc, e_chunk[s], bara_t[s],
+                                                 **kw) for s in range(steps)],
+        lambda: [mk_cmux.cmux_step_sparse_plain(acc, e_chunk[s], bara_t[s],
+                                                **kw) for s in range(steps)],
+        bound_ms(steps * nbytes(acc, acc, e_chunk[0], bara_t[0]), dots,
+                 PEAK_INT8_OPS_PER_S), card)
+    ks.timed(
+        "mk_blind_rotate_chunk", what,
+        lambda: mk_cmux.mk_blind_rotate_chunk_kernel(acc, e_chunk, bara_t,
+                                                     **kw),
+        lambda: mk_cmux.mk_blind_rotate_chunk_plain(acc, e_chunk, bara_t,
+                                                    **kw),
+        bound_ms(nbytes(acc, acc, e_chunk, bara_t), dots,
+                 PEAK_INT8_OPS_PER_S), card)
+    ks.timed(
+        "mk_blind_rotate_compact", what,
+        lambda: mk_cmux.mk_blind_rotate_compact_kernel(acc, limbs, bara_t,
+                                                       **kw),
+        lambda: mk_cmux.mk_blind_rotate_compact_plain(acc, limbs, bara_t,
+                                                      **kw),
+        bound_ms(nbytes(acc, acc, limbs, bara_t), dots, PEAK_INT8_OPS_PER_S),
+        card)
 
 
 def nand_chain(tp, ck, sk, gen, layers, batch, dev):
@@ -324,7 +457,7 @@ def nand_chain(tp, ck, sk, gen, layers, batch, dev):
 
 
 def reset_counts():
-    from tfhe_tpu_torch.ops import cmux_step, compact
+    from tfhe_tpu_torch.ops import cmux_step, compact, mk_cmux
     from tfhe_tpu_torch.ops.blind_rotate import blind_rotate_kernel
 
     wrappers = {
@@ -333,6 +466,9 @@ def reset_counts():
         "expand_karatsuba_step": compact.expand_step_kernel,
         "rotate_decompose": cmux_step.rotate_decompose_kernel,
         "cmux_matmul": cmux_step.cmux_matmul_kernel,
+        "cmux_step_sparse": mk_cmux.cmux_step_sparse_kernel,
+        "mk_blind_rotate_chunk": mk_cmux.mk_blind_rotate_chunk_kernel,
+        "mk_blind_rotate_compact": mk_cmux.mk_blind_rotate_compact_kernel,
     }
     for fn in wrappers.values():
         fn.launches = 0
@@ -341,6 +477,33 @@ def reset_counts():
 
 def read_counts(wrappers) -> dict:
     return {name: fn.launches for name, fn in wrappers.items()}
+
+
+def profile_layer(tag, what, fn, wall_ms, card):
+    """One call of `fn` under torch.profiler: device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    total = sum(ms for _, ms, _ in rows)
+    check(total > 0, "torch.profiler recorded no device time")
+    rows.sort(key=lambda r: -r[1])
+    print(f"[{tag} profile] {what}: device {total:.1f} ms under "
+          f"torch.profiler, against {wall_ms:.1f} ms of wall time per layer "
+          f"of the unprofiled chain: idle share "
+          f"{100 * (1 - total / wall_ms):.1f}% | {card}", flush=True)
+    for name, ms, count in rows[:6]:
+        print(f"[{tag} profile]   {ms:9.3f} ms {100 * ms / total:5.1f}% "
+              f"x{count:<5d} {name[:90]}", flush=True)
+    rest = sum(ms for _, ms, _ in rows[6:])
+    print(f"[{tag} profile]   {rest:9.3f} ms {100 * rest / total:5.1f}% "
+          f"everything else ({max(len(rows) - 6, 0)} kernels)", flush=True)
+    return out
 
 
 def phase4_baked(tp, ks, dev, card):
@@ -406,8 +569,6 @@ def phase4_baked(tp, ks, dev, card):
 
 
 def phase5_compact(tp, ks, dev, card):
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -443,28 +604,9 @@ def phase5_compact(tp, ks, dev, card):
           f"{correct}/{BATCH} correct | compact-rotation launches {launches} "
           f"(expected {LAYERS}) | peak {peak_gb:.2f} GB | {card}", flush=True)
 
-    # where one layer's device time goes
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        tp.gate_nand(ck, ct_x, ct_y)
-        torch.cuda.synchronize()
-    rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
-            for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA
-            and ev.self_device_time_total > 0]
-    total = sum(ms for _, ms, _ in rows)
-    check(total > 0, "torch.profiler recorded no device time")
-    rows.sort(key=lambda r: -r[1])
-    wall_ms = chain_s / LAYERS * 1e3
-    print(f"[5 profile] one 128_fast8 layer of {BATCH}: device {total:.1f} ms "
-          f"under torch.profiler, against {wall_ms:.1f} ms of wall time per "
-          f"layer of the unprofiled chain: idle share "
-          f"{100 * (1 - total / wall_ms):.1f}% | {card}", flush=True)
-    for name, ms, count in rows[:6]:
-        print(f"[5 profile]   {ms:9.3f} ms {100 * ms / total:5.1f}% "
-              f"x{count:<5d} {name[:90]}", flush=True)
-    rest = sum(ms for _, ms, _ in rows[6:])
-    print(f"[5 profile]   {rest:9.3f} ms {100 * rest / total:5.1f}% "
-          f"everything else ({len(rows) - 6} kernels)", flush=True)
+    profile_layer("5", f"one 128_fast8 layer of {BATCH}",
+                  lambda: tp.gate_nand(ck, ct_x, ct_y),
+                  chain_s / LAYERS * 1e3, card)
 
 
 def phase6_three_forms(tp, ks, dev, card):
@@ -556,6 +698,170 @@ def phase7_default_preset(tp, dev, card):
           f"{correct}/{batch} correct | {card}", flush=True)
 
 
+def mk_ceremony(tp, mk, params, parties, gen, dev):
+    """Shared key, secret keys, every party's part, the server's assembly.
+    Returns (secret keys, cloud key, seconds, key bytes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shared = mk.make_shared_key(gen, params)
+    sks = [tp.make_secret_key(gen, params) for _ in range(parties)]
+    parts = [mk.make_cloud_key_part(gen, sk, shared) for sk in sks]
+    ck = mk.make_mk_cloud_key(parts)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    bk = ck.bootstrap_key
+    key_bytes = nbytes(*(bk.limbs if bk.sparse else [bk.limbs]),
+                       *(k.table_limbs for k in ck.keyswitch_keys))
+    return sks, ck, seconds, key_bytes
+
+
+def mk_nand_chain(mk, ck, sks, gen, layers, batch, dev):
+    """mk_encrypt, `layers` chained mk_gate_nand, mk_decrypt. Returns the
+    inputs, the first layer's output, the number correct and the chain's
+    seconds."""
+    idx = torch.arange(batch, device=dev)
+    bits_x, bits_y = idx % 2 == 0, idx % 3 == 0
+    ct_x = mk.mk_encrypt(gen, sks, bits_x)
+    ct_y = mk.mk_encrypt(gen, sks, bits_y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = out = mk.mk_gate_nand(ck, ct_x, ct_y)
+    for _ in range(layers - 1):
+        out = mk.mk_gate_nand(ck, out, ct_y)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    want = ~(bits_x & bits_y)
+    for _ in range(layers - 1):
+        want = ~(want & bits_y)
+    correct = int((mk.mk_decrypt(sks, out) == want).sum())
+    check(out.a.shape == (batch, len(sks), sks[0].params.lwe_size)
+          and out.b.shape == (batch,), "MK output shape")
+    check(bool(torch.isfinite(out.cv).all()), "non-finite noise variance")
+    check(correct == batch, f"{correct}/{batch} MK gates decrypt correctly")
+    return (ct_x, ct_y), first, correct, chain_s
+
+
+MK_LAYERS = 2
+
+
+def phase8_mk_two_party(tp, ks, dev, card):
+    from tfhe_tpu_torch import mk
+    from tfhe_tpu_torch.mk.internals import active_plan
+    from tfhe_tpu_torch.ops.karatsuba import karatsuba_plan
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = mk.mktfhe_parameters_2party_lownoise()
+    parties, n_lwe = 2, params.lwe_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    sks, ck, ceremony_s, key_bytes = mk_ceremony(tp, mk, params, parties,
+                                                 gen, dev)
+    bk = ck.bootstrap_key
+    check(not bk.sparse and bk.block == 0
+          and tuple(bk.limbs.shape) == (1000, 4, 15, 3, 2048),
+          f"unexpected MK key: block {bk.block}, sparse {bk.sparse}")
+
+    wrappers = reset_counts()
+    (ct_x, ct_y), _, correct, chain_s = mk_nand_chain(
+        mk, ck, sks, gen, MK_LAYERS, BATCH, dev)
+    counts = {k: v for k, v in read_counts(wrappers).items() if v}
+    expected = {"mk_blind_rotate_compact": MK_LAYERS * parties,
+                "expand_karatsuba_step": MK_LAYERS * parties}
+    check(counts == expected,
+          f"MK compact path launches {counts}, expected {expected}")
+    ks.entries["mk_blind_rotate_compact"]["launches"] = \
+        counts["mk_blind_rotate_compact"]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    steps = MK_LAYERS * parties * n_lwe
+    # the least a step could take: the plan's tile products once each, the
+    # mean over the two parties' plans (K = 2, NZ = 4 and K = 3, NZ = 7)
+    plan = karatsuba_plan(params.N // T, 2, bk.log2_base)
+    plans = [active_plan(p, parties, True) for p in range(parties)]
+    nz_mean = sum(len(pl[1]) for pl in plans) / parties
+    k_mean = sum(pl[3] for pl in plans) / parties
+    l, n = bk.decomp_length, params.N
+    step_ops = 2.0 * plan.macs_superblocks * nz_mean * BATCH * l * T * 4 * T
+    # acc read and written, the step's compact limbs, its bara
+    step_bytes = 2 * BATCH * k_mean * n * 4 + 4 * nz_mean * l * 2 * n \
+        + BATCH * 4
+    step_bound, by = bound_ms(step_bytes, step_ops, PEAK_INT8_OPS_PER_S)
+    print(f"[8 MK main path] 2party_lownoise ceremony {ceremony_s:.2f} s | "
+          f"key {key_bytes / 1e6:.1f} MB (bootstrap "
+          f"{tuple(bk.limbs.shape)} + {parties} keyswitch tables) | "
+          f"{MK_LAYERS} NAND layers x {BATCH} in {chain_s:.3f} s = "
+          f"{BATCH * MK_LAYERS / chain_s:.1f} gates/s, "
+          f"{chain_s / steps * 1e3:.3f} ms per CMUX step over {steps} steps "
+          f"beside a bound of {step_bound:.4f} ms by {by} | "
+          f"{correct}/{BATCH} correct | launches {counts} | peak "
+          f"{peak_gb:.2f} GB | {card}", flush=True)
+
+    first = profile_layer(
+        "8", f"one 2party_lownoise layer of {BATCH}, compact path",
+        lambda: mk.mk_gate_nand(ck, ct_x, ct_y),
+        chain_s / MK_LAYERS * 1e3, card)
+
+    others = [  # (name, knobs, kernel, its launches per layer)
+        ("chunk", dict(mk_compact="0", mk_mega="1"),
+         "mk_blind_rotate_chunk", parties * n_lwe // 20),
+        ("per-step", dict(mk_compact="0", mk_mega="0"),
+         "cmux_step_sparse", parties * n_lwe),
+    ]
+    for name, knobs, kernel, n_launch in others:
+        wrappers = reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tp.tuning.override(**knobs):
+            out = mk.mk_gate_nand(ck, ct_x, ct_y)
+        torch.cuda.synchronize()
+        layer_s = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts(wrappers).items() if v}
+        expected = {kernel: n_launch,
+                    "expand_karatsuba_step": parties * n_lwe}
+        check(counts == expected,
+              f"MK {name} path launches {counts}, expected {expected}")
+        ks.entries[kernel]["launches"] = counts[kernel]
+        check(torch.equal(out.a, first.a) and torch.equal(out.b, first.b),
+              f"MK {name} path output differs from the compact path's")
+        print(f"[8 MK paths] {name}: one NAND layer x {BATCH} in "
+              f"{layer_s:.3f} s, {layer_s / (parties * n_lwe) * 1e3:.3f} ms "
+              f"per step | launches {counts} | a and b bit-equal to the "
+              f"compact path's | {card}", flush=True)
+
+
+def phase9_mk_more_parties(tp, dev, card):
+    from tfhe_tpu_torch import mk
+
+    for parties, make_params, batch, sparse in [
+            (4, mk.mktfhe_parameters_4party, 1024, False),
+            (8, mk.mktfhe_parameters_8party, 256, True)]:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = make_params()
+        gen = torch.Generator(device=dev).manual_seed(SEED + parties)
+        sks, ck, ceremony_s, key_bytes = mk_ceremony(tp, mk, params, parties,
+                                                     gen, dev)
+        bk = ck.bootstrap_key
+        check(bk.sparse == sparse and bk.block == 0,
+              f"{parties}-party key: sparse {bk.sparse}, block {bk.block}")
+        wrappers = reset_counts()
+        _, _, correct, layer_s = mk_nand_chain(mk, ck, sks, gen, 1, batch,
+                                               dev)
+        counts = {k: v for k, v in read_counts(wrappers).items() if v}
+        check(counts.get("mk_blind_rotate_compact") == parties,
+              f"{parties}-party launches {counts}")
+        print(f"[9 MK {parties} parties] ceremony {ceremony_s:.2f} s | key "
+              f"{key_bytes / 1e6:.1f} MB"
+              f"{' (sparse-stored)' if sparse else ''} | one NAND layer x "
+              f"{batch} in {layer_s:.3f} s = {batch / layer_s:.1f} gates/s, "
+              f"{layer_s / (parties * params.lwe_size) * 1e3:.3f} ms per "
+              f"step | {correct}/{batch} correct | launches {counts} | peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB | {card}",
+              flush=True)
+        del ck, bk
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -581,7 +887,7 @@ def main() -> int:
     log = (lib_path.parent / "build.log").read_text().splitlines()
     report = []
     for kernel in ("rotate_decompose_kernelIa", "rotate_decompose_kernelIs",
-                   "leaf_dots_kernel", "expand_kernel",
+                   "leaf_dots_kernel", "mk_unit_dots_kernel", "expand_kernel",
                    "rotate_decompose_dense_kernel"):
         at = next((i for i, ln in enumerate(log)
                    if "Compiling entry function" in ln and kernel in ln), None)
@@ -602,6 +908,8 @@ def main() -> int:
     phase5_compact(tp, ks, dev, card)
     phase6_three_forms(tp, ks, dev, card)
     phase7_default_preset(tp, dev, card)
+    phase8_mk_two_party(tp, ks, dev, card)
+    phase9_mk_more_parties(tp, dev, card)
 
     for ent in ks.entries.values():
         check(ent["launches"] > 0,

@@ -152,7 +152,8 @@ def test_port_imports_no_jax():
         "import tfhe_tpu_torch\n"
         "for m in ('interop', 'ops.blind_rotate', 'ops._build', 'gates',"
         "          'tuning', 'ops.compact', 'ops.cmux_step', 'ops.conv',"
-        "          'ops.karatsuba', 'tgsw'):\n"
+        "          'ops.karatsuba', 'tgsw', 'ops.mk_cmux', 'mk', 'mk.api',"
+        "          'mk.gates', 'mk.internals'):\n"
         "    importlib.import_module('tfhe_tpu_torch.' + m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'tfhe_tpu', 'triton')]\n"

@@ -9,7 +9,9 @@ import pytest
 from tfhe_tpu import tuning as j_tuning
 from tfhe_tpu_torch import tuning as p_tuning
 
-PORTED = ("karatsuba_depth", "bs_bake_budget")
+PORTED = ("karatsuba_depth", "bs_bake_budget", "mk_bake_budget",
+          "mk_sparse_limbs", "mk_cmux", "mk_chunk", "mk_mega", "mk_compact",
+          "mk_progressive")
 
 
 @pytest.fixture(autouse=True)
@@ -27,6 +29,7 @@ def test_defaults_equal_reference(name):
     got = {f.name: f for f in dataclasses.fields(p_tuning.TuningConfig)}
     assert set(got) == set(PORTED)
     assert got[name].default == ref[name].default
+    assert got[name].type == ref[name].type
     assert p_tuning._ENV[name] == j_tuning._ENV[name]
     assert getattr(p_tuning.get_tuning(), name) == \
         getattr(j_tuning.TuningConfig(), name)
@@ -73,3 +76,22 @@ def test_environment_is_read_per_call(monkeypatch):
     assert (ref.karatsuba_depth, ref.bs_bake_budget) == (1, 0)
     with p_tuning.override(bs_bake_budget=-1):  # an override beats the env
         assert p_tuning.get_tuning().bs_bake_budget == -1
+
+
+@pytest.mark.parametrize("raw,want", [("0", False), ("off", False),
+                                      ("", False), ("1", True),
+                                      ("Yes", True)])
+def test_environment_booleans_parse_like_the_reference(monkeypatch, raw, want):
+    monkeypatch.setenv("TFHE_TPU_MK_PROGRESSIVE", raw)
+    monkeypatch.setenv("TFHE_TPU_MK_CMUX", "expand")
+    monkeypatch.setenv("TFHE_TPU_MK_CHUNK", "4")
+    got, ref = p_tuning.get_tuning(), j_tuning.from_env()
+    assert got.mk_progressive is want and ref.mk_progressive is want
+    assert (got.mk_cmux, got.mk_chunk) == (ref.mk_cmux, ref.mk_chunk) \
+        == ("expand", 4)
+
+
+def test_environment_rejects_a_bad_boolean(monkeypatch):
+    monkeypatch.setenv("TFHE_TPU_MK_PROGRESSIVE", "maybe")
+    with pytest.raises(ValueError, match="expected a boolean"):
+        p_tuning.get_tuning()

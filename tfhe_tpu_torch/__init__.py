@@ -3,9 +3,11 @@
 TFHE gate bootstrapping on torch tensors, with the blind rotation of every
 single-key form of the bootstrap key (Karatsuba-baked, compact, dense) as
 hand-written CUDA kernels for Hopper (ops/blind_rotate.py, ops/compact.py,
-ops/cmux_step.py, csrc/). Module names mirror `tfhe_tpu`; every word of every
-ciphertext and key equals the reference's for the same inputs. This package
-never imports JAX.
+ops/cmux_step.py, csrc/), and multi-key TFHE in the subpackage `mk` (key
+ceremony, `mk_encrypt`, the 12 `mk_gate_*`, `mk_decrypt`; its blind rotation
+through the kernels of ops/mk_cmux.py). Module names mirror `tfhe_tpu`; every
+word of every ciphertext and key equals the reference's for the same inputs.
+This package never imports JAX.
 """
 
 from . import tuning
@@ -48,5 +50,6 @@ from .gates import (
     gate_xnor,
     gate_xor,
 )
+from . import mk
 
 __all__ = [name for name in dir() if not name.startswith("_")]

@@ -60,10 +60,12 @@ int tfhe_blind_rotate(int32_t* acc, const int8_t* key, const int32_t* bara_t,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Params p = make_params(batch, k1, n, l, b, m, lhs_rows, offset);
   const size_t key_step = (size_t)total_rows * p.pt * p.cols;  // > 2^31
+  cudaError_t err = allow_digit_smem(p);
+  if (err != cudaSuccess) return (int)err;
   for (int s = 0; s < n_steps; ++s) {
-    cudaError_t err = launch_step(acc, key + (size_t)s * key_step,
-                                  bara_t + (size_t)s * batch, lhs, combos,
-                                  n_combos, terms, term_start, p, st);
+    err = launch_step(acc, key + (size_t)s * key_step,
+                      bara_t + (size_t)s * batch, lhs, combos, n_combos,
+                      terms, term_start, p, st);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = ("blind_rotate.cu", "compact.cu", "cmux_step.cu")
+_SOURCES = ("blind_rotate.cu", "compact.cu", "cmux_step.cu", "mk_cmux.cu")
 _HEADERS = ("cmux_kernels.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -114,6 +114,17 @@ def load() -> ctypes.CDLL:
     lib.tfhe_cmux_matmul.argtypes = [
         vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp]
     lib.tfhe_cmux_matmul.restype = i32
+    mk_head = [vp, vp, vp, vp]  # acc operand bara lhs
+    mk_tables = [vp, i32, vp, vp]  # combos n terms start
+    lib.tfhe_mk_cmux_step.argtypes = (
+        mk_head + mk_tables + [i32] * 9 + [vp])
+    lib.tfhe_mk_cmux_step.restype = i32
+    lib.tfhe_mk_blind_rotate_chunk.argtypes = (
+        mk_head + mk_tables + [i32] * 11 + [vp])
+    lib.tfhe_mk_blind_rotate_chunk.restype = i32
+    lib.tfhe_mk_blind_rotate_compact.argtypes = (
+        mk_head + [vp, vp] + mk_tables + [i32] * 11 + [vp])  # + scratch masks
+    lib.tfhe_mk_blind_rotate_compact.restype = i32
     lib.tfhe_error_string.argtypes = [i32]
     lib.tfhe_error_string.restype = ctypes.c_char_p
     return lib

@@ -29,12 +29,18 @@ from .karatsuba import KaratsubaPlan, karatsuba_delta
 
 # The kernel's fixed tile geometry (csrc/blind_rotate.cu).
 KERNEL_BLOCK = 128  # T: the Toeplitz block size the kernel takes
-_MAX_DIGIT_SMEM = 48 * 1024  # digits of one row, M*P*T bytes, in shared memory
+# Raw digits of one row, M*P*T bytes (twice that for b > 8), live in shared
+# memory: up to the 227 KB a block may opt in to on Hopper.
+_MAX_DIGIT_SMEM = 227 * 1024
 
 
-def kernel_plan(plan: KaratsubaPlan, p: int, t: int):
+def kernel_plan(plan: KaratsubaPlan, p: int, t: int,
+                inline_combos: bool = False):
     """Lower a KaratsubaPlan into static kernel metadata, exactly as the
-    reference's `_kernel_plan` (without inline combos).
+    reference's `_kernel_plan`. The CUDA kernels take the lowering without
+    inline combos; with `inline_combos` a single-limb combo leaf gets the
+    descriptor (2, entries, 0) instead of combo rows, which only
+    `mk_cmux.sparse_plan` asks for, to be held against the reference's.
 
     Returns (combo_writes, leaf_dots, comb_rows):
     * combo_writes: ((dst_row, src_blocks, shifts, leaf_len), ...), one per
@@ -60,6 +66,8 @@ def kernel_plan(plan: KaratsubaPlan, p: int, t: int):
                                                               first + L)):
                 raise ValueError("singleton leaf blocks are not consecutive")
             lhs_descs = ((0, first, 0),)
+        elif inline_combos and lf.d_shifts == (0,):
+            lhs_descs = ((2, lf.entries, 0),)
         else:
             base = comb_row
             for j, entry in enumerate(lf.entries):
@@ -166,6 +174,34 @@ def require(cond: bool, what: str, who: str):
         raise ValueError(f"{who}: {what}")
 
 
+def check_rotation_geometry(who: str, k1: int, n: int, l: int, b: int,
+                            t: int, plan: KaratsubaPlan):
+    """The shapes the rotation kernels serve: T = 128, N a power of two with
+    at most 31 blocks, a gadget that fits 32-bit words and int16 digits, and
+    one row's raw digits (M*K*l*T bytes, twice that for b > 8) within the
+    shared memory a block can use. Every single-key preset and the
+    multi-key shapes up to 8 parties (K = 9, l = 8: 73,728 bytes) fit.
+    Returns (M, P*T)."""
+    def check(cond, what):
+        require(cond, what, who)
+
+    check(t == KERNEL_BLOCK, f"block T must be {KERNEL_BLOCK}, got {t}")
+    check(1 <= b <= 15 and l * b <= 32,
+          f"gadget l={l}, b={b} does not fit 32-bit words and int16 digits")
+    m = n // t
+    pt = k1 * l * t
+    check(n == m * t and n & (n - 1) == 0 and plan.m == m,
+          f"plan m={plan.m} does not fit N={n} (a power of two)")
+    check(m <= 31, "at most 31 blocks per polynomial")
+    # raw digits of one row in shared memory: bytes for b <= 8, else int16
+    digit_bytes = m * pt * (1 if b <= 8 else 2)
+    check(digit_bytes <= _MAX_DIGIT_SMEM,
+          f"one row's digits (K={k1}, l={l}, N={n}: {digit_bytes} bytes) "
+          f"exceed the {_MAX_DIGIT_SMEM} bytes of shared memory a block "
+          "can use")
+    return m, pt
+
+
 def check_rotation_args(who: str, acc: torch.Tensor, key: torch.Tensor,
                         bara_t: torch.Tensor, l: int, b: int, t: int,
                         plan: KaratsubaPlan):
@@ -184,18 +220,8 @@ def check_rotation_args(who: str, acc: torch.Tensor, key: torch.Tensor,
           and key.dtype == torch.int8, "dtypes must be int32/int8/int32")
     check(acc.is_contiguous() and key.is_contiguous()
           and bara_t.is_contiguous(), "tensors must be contiguous")
-    check(t == KERNEL_BLOCK, f"block T must be {KERNEL_BLOCK}, got {t}")
-    check(1 <= b <= 15 and l * b <= 32,
-          f"gadget l={l}, b={b} does not fit 32-bit words and int16 digits")
     bsz, k1, n = acc.shape
-    m = n // t
-    pt = k1 * l * t
-    check(n == m * t and n & (n - 1) == 0 and plan.m == m,
-          f"plan m={plan.m} does not fit N={n} (a power of two)")
-    check(m <= 31, "at most 31 blocks per polynomial")
-    # raw digits of one row in shared memory: bytes for b <= 8, else int16
-    check(m * pt * (1 if b <= 8 else 2) <= _MAX_DIGIT_SMEM,
-          "one row's digits exceed 48 KB")
+    m, pt = check_rotation_geometry(who, k1, n, l, b, t, plan)
     check(tuple(bara_t.shape) == (key.shape[0], bsz),
           f"bara_t must be [{key.shape[0]}, {bsz}], "
           f"got {tuple(bara_t.shape)}")

@@ -1,14 +1,13 @@
 """Exact negacyclic products mod 2^32 as int8 limb contractions.
 
-Counterpart of the single-key part of `tfhe_tpu/ops/conv.py`: the limb
-splits, the prepared (compact) product `poly_mul_prepared`, the dense
-block-Toeplitz bake with its matmul and recombination, and the keygen
-product `poly_mul_batched_torus`. Not here: `poly_mul_batched_small` (a
-one-line wrapper no caller of the port needs), the multi-key
-`poly_mul_batched_torus_multi` and the pairwise `negacyclic_mul`. A torus
-word splits into four balanced signed bytes, so a product with a small
-operand becomes int8 x int8 -> int32 matrix products that are exact,
-recombined with shifts mod 2^32.
+Counterpart of `tfhe_tpu/ops/conv.py`: the limb splits, the prepared
+(compact) product `poly_mul_prepared`, the dense block-Toeplitz bake with
+its matmul and recombination, and the keygen products
+`poly_mul_batched_torus`, `poly_mul_batched_small` and the multi-output
+`poly_mul_batched_torus_multi` of the multi-key ceremony. Not here: the
+pairwise `negacyclic_mul`. A torus word splits into four balanced signed
+bytes, so a product with a small operand becomes int8 x int8 -> int32
+matrix products that are exact, recombined with shifts mod 2^32.
 """
 
 from __future__ import annotations
@@ -144,6 +143,40 @@ def poly_mul_prepared(digits: torch.Tensor, t_limbs_doubled: torch.Tensor,
             shift = d_shifts[si] + 8 * j
             if shift < 32:
                 out += prods[si, :, :, j, :] << shift
+    return out
+
+
+def poly_mul_batched_small(digits: torch.Tensor, t_shared: torch.Tensor,
+                           small_bound_bits: int) -> torch.Tensor:
+    """One-shot form of `poly_mul_prepared` (limb preparation inlined).
+
+    digits: int32[B, P, N] small ints; t_shared: int32[P, K, N] torus
+    polynomials shared by the batch. Returns int32[B, K, N].
+    """
+    return poly_mul_prepared(digits, prepare_shared_torus(t_shared),
+                             small_bound_bits)
+
+
+def poly_mul_batched_torus_multi(a_batch: torch.Tensor,
+                                 s_shared: torch.Tensor) -> torch.Tensor:
+    """out[b, k] = sum_p negacyclic_conv(s_shared[k, p], a_batch[b, p])
+    mod 2^32.
+
+    a_batch: int32[B, P, N] torus polynomials; s_shared: int32[K, P, N] small
+    ints that fit int8, shared by the batch. Returns int32[B, K, N]: one
+    Toeplitz [P*N, K*N] of the small operand serves every batch element and
+    every output k (the multi-key expansion's contraction).
+    """
+    bsz, p, n = a_batch.shape
+    k = s_shared.shape[0]
+    toep = negacyclic_toeplitz(s_shared.to(torch.int32)).to(torch.int8)
+    toep = toep.permute(1, 2, 0, 3).reshape(p * n, k * n)  # [K,P,N,N] ->
+    a_limbs = split_torus_limbs(a_batch)  # [4, B, P, N]
+    prods = i8_matmul(a_limbs.reshape(4 * bsz, p * n), toep)
+    prods = prods.reshape(4, bsz, k, n)
+    out = prods[0].clone()
+    for j in range(1, 4):
+        out += prods[j] << (8 * j)
     return out
 
 

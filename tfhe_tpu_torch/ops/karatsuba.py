@@ -1,6 +1,6 @@
 """Block-level Karatsuba for the CMUX contraction, exact mod 2^32.
 
-Counterpart of the single-key part of `tfhe_tpu/ops/karatsuba.py`. The
+Counterpart of `tfhe_tpu/ops/karatsuba.py`, without its column sharding. The
 negacyclic N x N Toeplitz of a key polynomial splits into T x T blocks W_d
 with W_{d+M} = -W_d (M = N/T), so one external product is the polynomial
 product C(z) = D(z) E(z) mod z^M + 1 over the block index. Karatsuba over z
@@ -192,6 +192,43 @@ def expand_karatsuba_step(limbs_step: torch.Tensor, t: int,
     e = lb[..., (t + w - u).reshape(-1)]  # [4, R, P, K, T(u)*T(w)]
     e = e.reshape(4, plan.total_rows, p, k, t, t).permute(1, 2, 4, 3, 0, 5)
     return e.reshape(plan.total_rows * p * t, k * 4 * t)
+
+
+def select_nz_limbs(limbs: torch.Tensor, nz, l: int) -> torch.Tensor:
+    """The nonzero (block row j, output column k) blocks of a dense
+    prepared multi-key operand, stacked in `nz` order:
+    int8[..., 4, P, K, 2N] -> int8[..., 4, NZ, l, 2N] (contiguous). The one
+    place that knows how a sparse-stored key relates to a dense one: the
+    plain expansion, the compact rotation's key selection and the tests
+    share it."""
+    return torch.stack([limbs[..., j * l:(j + 1) * l, kc, :]
+                        for (j, kc) in nz], dim=-3)
+
+
+def expand_karatsuba_sparse(limbs_step: torch.Tensor, t: int,
+                            plan: KaratsubaPlan, nz, l: int,
+                            preselected: bool = False) -> torch.Tensor:
+    """Sparse-block variant of `expand_karatsuba_step` for the multi-key
+    operand, whose (parties+1)^2 block matrix is mostly structural zeros:
+    expands only the `nz` (block row j, output column k) pairs.
+
+    limbs_step: int8[4, P=K*l, K, 2N] (dense prepared rows), or with
+    preselected=True int8[4, NZ, l, 2N] (a sparse-stored key, same nz
+    order). Returns int8[total_rows * NZ * l * T, 4 * T]: rows (entry r in
+    `entry_rows` order, nz index z, l', u), columns (limb, w) of that
+    block's single output column. Each selected block is a one-column key
+    row, so this is `expand_karatsuba_step` on int8[4, NZ*l, 1, 2N] (a
+    gather; the reference's one-hot matmul is how a TPU gathers).
+    """
+    if preselected:
+        if tuple(limbs_step.shape[1:3]) != (len(nz), l):
+            raise ValueError(f"preselected limbs {tuple(limbs_step.shape)} "
+                             f"do not hold {len(nz)} blocks of {l} rows")
+        sel = limbs_step
+    else:
+        sel = select_nz_limbs(limbs_step, nz, l)
+    return expand_karatsuba_step(
+        sel.reshape(4, len(nz) * l, 1, sel.shape[-1]), t, plan)
 
 
 def _digit_combos(digits: torch.Tensor, plan: KaratsubaPlan, t: int) -> list:
