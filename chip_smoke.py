@@ -1,6 +1,7 @@
 """Smoke run of tfhe_tpu_torch on one CUDA card: build, check, drive.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --rows-against DIR   # see rows_against()
 
 Phases, one line or a few each (any failure exits non-zero, nothing falls
 back):
@@ -10,6 +11,12 @@ back):
    parallel; seconds; ptxas report).
 3. Kernel against plain, `torch.equal`, on the card, with random
    accumulators, random keys and random bara including 0 and negatives:
+   the first launch of every rotation step alone (`digit_rows_kernel`
+   against `digit_rows_plain`: 128_fast with B = 256 and 300, 128_fast8,
+   N = 1024 at depth 2, 128_pbs, 128_radix_reliable, the 80-bit b = 10
+   shape (the bytes it defines), the 2-party MK plans with K = 2 and 3, and
+   8 parties with K = 9; B = 70 unless named), then its time at the
+   presets' shapes (B = 4096, 256 for 8 parties) beside its byte bound;
    the baked Karatsuba rotation (128_fast with B = 256 and 300, toy,
    N = 1024 at depth 2, the plans of 128_pbs (K = 3, N = 512) and
    128_radix_reliable (l = 4, b = 6) with B = 70, and the 80-bit shape with
@@ -30,8 +37,10 @@ back):
    128_radix, 128_radix_reliable, 128_pbs and the 80-bit preset. The
    whole-rotation and dense kernels read their key K-major
    (`ops/dots.py:to_kmajor`), the plain versions the reference layout of the
-   same bytes. Then each kernel timed at B = 4096 over 8 steps beside its
-   plain version, with its bound from the shapes; for the dots kernels also
+   same bytes; the multi-key operands are K-major on the card, relaid with
+   `from_kmajor` for the plain versions. Then each kernel timed at B = 4096
+   over 8 steps beside its plain version, with its bound from the shapes;
+   for the dots kernels also
    the int8 operations executed (from the product tables they read) and
    useful (from the plan), and a cuBLAS yardstick: the summed time of
    `torch._int_mm` over the step's distinct products at the same shapes
@@ -58,8 +67,12 @@ back):
    one compact-rotation launch per party and layer; one more layer under
    `torch.profiler`; then one layer each on the chunk and per-step paths,
    bit-equal to the compact one's; then one `mk_programmable_bootstrap`
-   call over 1024 messages, all correct.
-9. `mktfhe_parameters_4party`, one NAND layer of 1024, and
+   call over 1024 messages, all correct; then at 128 messages every other
+   MK gate (AND ... MUX, NOT) and one `mk_programmable_bootstrap_many`
+   call with q = 2, all correct.
+9. `mktfhe_parameters_2party` (the reference-fidelity preset, ~1.5% of its
+   gates fail by design: at most 4 of 64 wrong), one NAND layer of 64;
+   `mktfhe_parameters_4party`, one NAND layer of 1024, and
    `mktfhe_parameters_8party` (sparse-stored key), one layer of 256, all
    correct.
 10. Programmable bootstrapping: `tfhe_parameters_128_pbs` (k = 2, N = 512)
@@ -76,7 +89,9 @@ back):
    counted (the preset's model failure is 7.9e-5 per word; more than 4 of
    4096 fails); one add under `torch.profiler`; then at 256 words one call
    each of sub, geq, min, mul, xor, shift left by 3, neg, and `radix_divide`
-   at 4-bit words.
+   at 4-bit words; then a 16-bit `radix_add`, `radix_eq`, both right
+   shifts, and the signed `radix_abs`, `radix_geq_signed` and
+   `radix_min_signed`, wrong words counted as above.
 12. `tfhe_parameters_128_radix_reliable` under
    `tuning.override(radix_manylut=False, bs_bake_budget=0)`: compact key,
    1024 words, one timed `radix_add`, every word correct.
@@ -272,6 +287,7 @@ def phase3(gen, card) -> Kernels:
     ks.entry("expand_karatsuba_step", "compact.cu", f"{src}:1737")
     ks.entry("rotate_decompose", "cmux_step.cu", f"{src}:39")
     ks.entry("cmux_matmul", "cmux_step.cu", f"{src}:92")
+    phase3_rows(ks, gen, card)
 
     def shape(k1, n, l, b, depth, n_steps, batch):
         return (f"K={k1} N={n} l={l} b={b} depth={depth} steps={n_steps} "
@@ -404,6 +420,105 @@ def phase3(gen, card) -> Kernels:
     return ks
 
 
+# The digit-row shapes (name, K, N, l, b, depth, balanced): the presets'
+# steps, single-key and multi-key (the 8-party preset's l = 8, b = 4).
+ROW_SHAPES = {
+    "128_fast": (5, 256, 2, 8, 1, True),
+    "128_fast8": (9, 128, 2, 8, 0, True),
+    "128_pbs": (3, 512, 3, 7, 2, True),
+    "128_radix": (2, 1024, 3, 7, 2, True),
+    "N1024_depth2": (2, 1024, 3, 7, 2, False),
+    "128_radix_reliable": (2, 1024, 4, 6, 2, True),
+    "80bit_b10": (2, 1024, 2, 10, 2, False),
+    "MK_2party_K2": (2, 1024, 5, 6, 2, False),
+    "MK_2party_K3": (3, 1024, 5, 6, 2, False),
+    "MK_8party_K9": (9, 1024, 8, 4, 2, False),
+}
+# where the timings are taken, at B = 4096 (256 for 8 parties)
+ROW_TIMED = ("128_fast", "128_fast8", "128_pbs", "128_radix", "MK_2party_K2",
+             "MK_2party_K3", "MK_8party_K9")
+
+
+def rows_case(gen, name, batch):
+    """Random acc and bara (0 in row 0, negatives) for one digit-row shape;
+    returns (acc, bara, combos, lhs_rows, kw, first defined byte)."""
+    from tfhe_tpu_torch.ops.blind_rotate import (
+        digit_row_defined,
+        kernel_tables,
+    )
+    from tfhe_tpu_torch.ops.karatsuba import karatsuba_plan
+    from tfhe_tpu_torch.tgsw import decomp_offset
+
+    k1, n, l, b, depth, balanced = ROW_SHAPES[name]
+    combos, _, _, lhs_rows = kernel_tables(karatsuba_plan(n // T, depth, b),
+                                           k1 * l, T)
+    kw = dict(l=l, b=b, t=T, offset=decomp_offset(l, b, balanced))
+    return (rand_i32(gen, (batch, k1, n)), rand_bara(gen, n, 2, batch)[1],
+            combos, lhs_rows, kw, digit_row_defined(b, n // T, k1 * l * T))
+
+
+def rows_bound(acc, combos, lhs_rows, kw, first):
+    """The least time of one digit-row launch: acc read once, the defined
+    digit bytes written once; operations: per digit a shift, a mask and a
+    subtract, per combo lane its adds and (two-limb) split."""
+    bsz, k1, n = acc.shape
+    l = kw["l"]
+    written = bsz * (lhs_rows * k1 * l * T - first)
+    lanes = bsz * k1 * n * l
+    ops = 3.0 * lanes + lanes // (n // T) * sum(
+        bin(mask).count("1") + 4 * two for _, mask, two, _ in combos)
+    return bound_ms(nbytes(acc) + written + 4 * bsz, ops, PEAK_ALU_OPS_PER_S)
+
+
+def phase3_rows(ks, gen, card):
+    """The first launch of every rotation step alone: rotate_decompose_kernel
+    (digit_rows_kernel) against digit_rows_plain, then its time at the
+    presets' shapes beside its bound."""
+    from tfhe_tpu_torch.ops.blind_rotate import (
+        digit_rows_kernel,
+        digit_rows_plain,
+    )
+
+    name = "rotate_decompose_rows"
+    src = "tfhe_tpu/ops/pallas_cmux.py"
+    ks.entry(name, "cmux_kernels.cuh", f"{src}:334")["also_replaces"] = \
+        f"{src}:372"
+    for shape, batch in [("128_fast", 256), ("128_fast", 300),
+                         ("128_fast8", 300), ("N1024_depth2", 70),
+                         ("128_pbs", 70), ("128_radix_reliable", 70),
+                         ("80bit_b10", 70), ("MK_2party_K2", 70),
+                         ("MK_2party_K3", 70), ("MK_8party_K9", 70)]:
+        acc, bara, combos, lhs_rows, kw, first = rows_case(gen, shape, batch)
+        got = digit_rows_kernel(acc, bara, combos, lhs_rows, **kw)
+        want = digit_rows_plain(acc, bara, combos, lhs_rows, **kw)
+        what = "{} K={} N={} l={} b={} depth={} B={}".format(
+            shape, *ROW_SHAPES[shape][:5], batch)
+        ks.compare(name, what + ("" if not first else
+                                 f" (bytes from {first}: b > 8)"),
+                   got[:, first:], want[:, first:])
+
+    ent = ks.entries[name]
+    ent["shapes"] = {}
+    for shape in ROW_TIMED:
+        batch = 256 if shape == "MK_8party_K9" else BATCH
+        acc, bara, combos, lhs_rows, kw, first = rows_case(gen, shape, batch)
+        ms = cuda_ms(lambda: digit_rows_kernel(acc, bara, combos, lhs_rows,
+                                               **kw), reps=10)
+        bound, by = rows_bound(acc, combos, lhs_rows, kw, first)
+        ent["shapes"][shape] = {"B": batch, "ms": ms, "bound_ms": bound,
+                                "bound_by": by}
+        print(f"[3 timing] {name} {shape} B={batch}: kernel {ms:.4f} ms, "
+              f"bound {bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of "
+              f"it) | {card}", flush=True)
+        if shape == "128_fast":
+            ks.timed(name, f"128_fast B={batch}",
+                     lambda: digit_rows_kernel(acc, bara, combos, lhs_rows,
+                                               **kw),
+                     lambda: digit_rows_plain(acc, bara, combos, lhs_rows,
+                                              **kw),
+                     (bound, by), card)
+
+
 def phase3_fused(ks, gen, card):
     """The fused Karatsuba step (one launch) against its plain version and
     against the whole-rotation kernel, then its time at 128_fast."""
@@ -482,6 +597,7 @@ def phase3_mk(ks, gen, card):
     """The three multi-key kernels and the sparse expansion against their
     plain versions, then their times at the 2-party lownoise shape."""
     from tfhe_tpu_torch.ops import mk_cmux
+    from tfhe_tpu_torch.ops.dots import from_kmajor
     from tfhe_tpu_torch.ops.karatsuba import expand_karatsuba_sparse
 
     ks.entry("cmux_step_sparse", "mk_cmux.cu", f"{MK_SRC}:950")
@@ -509,35 +625,37 @@ def phase3_mk(ks, gen, card):
                 f"K={acc.shape[1]} NZ={len(kw['nz'])} steps={n_steps} "
                 f"B={batch}" + (" sparse-stored" if sparse else "")
                 + ("" if progressive else " full plan"))
-        e_chunk = expand_all(
+        e_chunk = expand_all(  # K-major, the layout the kernels read
             limbs, kw, lambda st, **ekw: mk_cmux.expand_sparse(
                 st, preselected=True, **ekw))
+        e_ref = expand_all(
+            limbs, kw, lambda st, t, plan, nz, l:
+            expand_karatsuba_sparse(st, t, plan, nz, l, True))
         ks.compare("expand_karatsuba_step", what + " (sparse expansion)",
-                   e_chunk, expand_all(
-                       limbs, kw, lambda st, t, plan, nz, l:
-                       expand_karatsuba_sparse(st, t, plan, nz, l, True)))
+                   from_kmajor(e_chunk), e_ref)
         ks.compare("cmux_step_sparse", what,
                    mk_cmux.cmux_step_sparse_kernel(acc, e_chunk[1], bara_t[1],
                                                    **kw),
-                   mk_cmux.cmux_step_sparse_plain(acc, e_chunk[1], bara_t[1],
+                   mk_cmux.cmux_step_sparse_plain(acc, e_ref[1], bara_t[1],
                                                   **kw))
         ks.compare("mk_blind_rotate_chunk", what,
                    mk_cmux.mk_blind_rotate_chunk_kernel(acc, e_chunk, bara_t,
                                                         **kw),
-                   mk_cmux.mk_blind_rotate_chunk_plain(acc, e_chunk, bara_t,
+                   mk_cmux.mk_blind_rotate_chunk_plain(acc, e_ref, bara_t,
                                                        **kw))
         ks.compare("mk_blind_rotate_compact", what,
                    mk_cmux.mk_blind_rotate_compact_kernel(acc, limbs, bara_t,
                                                           **kw),
                    mk_cmux.mk_blind_rotate_compact_plain(acc, limbs, bara_t,
                                                          **kw))
-        del e_chunk
+        del e_chunk, e_ref
 
     # timings: party 1's plan of 2-party lownoise (K = 3, NZ = 7), B = 4096
     steps = TIMED_STEPS
     acc, limbs, bara_t, kw = mk_case(gen, 2, 1, 5, 6, steps, BATCH)
     e_chunk = expand_all(limbs, kw, lambda st, **ekw: mk_cmux.expand_sparse(
         st, preselected=True, **ekw))
+    e_ref = from_kmajor(e_chunk)
     nzn, lt = len(kw["nz"]), kw["l"] * T
     # each of the plan's digit x key tile products once: [B, l*T] x [l*T, 4T]
     dots = 2.0 * kw["plan"].macs_superblocks * nzn * BATCH * lt * 4 * T * steps
@@ -549,7 +667,7 @@ def phase3_mk(ks, gen, card):
         "cmux_step_sparse", what + " (one call each)",
         lambda: [mk_cmux.cmux_step_sparse_kernel(acc, e_chunk[s], bara_t[s],
                                                  **kw) for s in range(steps)],
-        lambda: [mk_cmux.cmux_step_sparse_plain(acc, e_chunk[s], bara_t[s],
+        lambda: [mk_cmux.cmux_step_sparse_plain(acc, e_ref[s], bara_t[s],
                                                 **kw) for s in range(steps)],
         bound_ms(steps * nbytes(acc, acc, e_chunk[0], bara_t[0]), dots,
                  PEAK_INT8_OPS_PER_S), card, ops)
@@ -557,7 +675,7 @@ def phase3_mk(ks, gen, card):
         "mk_blind_rotate_chunk", what,
         lambda: mk_cmux.mk_blind_rotate_chunk_kernel(acc, e_chunk, bara_t,
                                                      **kw),
-        lambda: mk_cmux.mk_blind_rotate_chunk_plain(acc, e_chunk, bara_t,
+        lambda: mk_cmux.mk_blind_rotate_chunk_plain(acc, e_ref, bara_t,
                                                     **kw),
         bound_ms(nbytes(acc, acc, e_chunk, bara_t), dots,
                  PEAK_INT8_OPS_PER_S), card, ops)
@@ -597,7 +715,13 @@ def nand_chain(tp, ck, sk, gen, layers, batch, dev):
 
 
 def reset_counts():
-    from tfhe_tpu_torch.ops import cmux_step, compact, fused_step, mk_cmux
+    from tfhe_tpu_torch.ops import (
+        blind_rotate,
+        cmux_step,
+        compact,
+        fused_step,
+        mk_cmux,
+    )
     from tfhe_tpu_torch.ops.blind_rotate import blind_rotate_kernel
 
     wrappers = {
@@ -606,6 +730,7 @@ def reset_counts():
         "blind_rotate_compact": compact.blind_rotate_compact_kernel,
         "expand_karatsuba_step": compact.expand_step_kernel,
         "rotate_decompose": cmux_step.rotate_decompose_kernel,
+        "rotate_decompose_rows": blind_rotate.digit_rows_kernel,
         "cmux_matmul": cmux_step.cmux_matmul_kernel,
         "cmux_step_sparse": mk_cmux.cmux_step_sparse_kernel,
         "mk_blind_rotate_chunk": mk_cmux.mk_blind_rotate_chunk_kernel,
@@ -693,13 +818,18 @@ def phase4_baked(tp, ks, dev, card):
     wrappers = reset_counts()
     (ct_x, ct_y), _, correct, chain_s = nand_chain(tp, ck, sk, gen, LAYERS,
                                                    BATCH, dev)
-    counts = read_counts(wrappers)
+    counts = {k: v for k, v in read_counts(wrappers).items() if v}
     launches = counts["blind_rotate"]
     check(launches == LAYERS,
           f"{launches} kernel launches in {LAYERS} NAND layers")
-    check(sum(counts.values()) == launches,
+    # the rotation's first launch of each of its n steps is the digit rows
+    n_steps = bk.baked.shape[0]
+    check(counts == {"blind_rotate": LAYERS,
+                     "rotate_decompose_rows": LAYERS * n_steps},
           f"the baked path launched other kernels: {counts}")
     ks.entries["blind_rotate"]["launches"] = launches
+    ks.entries["rotate_decompose_rows"]["launches"] = \
+        counts["rotate_decompose_rows"]
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
     # The kernel's rotation on real ciphertexts against the plain version:
@@ -727,7 +857,9 @@ def phase4_baked(tp, ks, dev, card):
           f"layers x {BATCH} in {chain_s:.3f} s = "
           f"{BATCH * LAYERS / chain_s:.1f} gates/s | "
           f"{correct}/{BATCH} correct | kernel launches {launches} "
-          f"(expected {LAYERS}) | peak {peak_gb:.2f} GB | real-key rotation "
+          f"(expected {LAYERS}), digit-row launches "
+          f"{counts['rotate_decompose_rows']} | peak {peak_gb:.2f} GB | "
+          f"real-key rotation "
           f"kernel=plain on {small} | {card}", flush=True)
 
 
@@ -754,7 +886,9 @@ def phase5_compact(tp, ks, dev, card):
     launches = counts["blind_rotate_compact"]
     check(launches == LAYERS and counts["expand_karatsuba_step"] == LAYERS,
           f"compact launches {counts} in {LAYERS} NAND layers")
-    check(sum(counts.values()) == 2 * LAYERS,
+    check(counts["rotate_decompose_rows"] == LAYERS * bk.baked.shape[0]
+          and sum(counts.values()) == 2 * LAYERS
+          + counts["rotate_decompose_rows"],
           f"the compact path launched other kernels: {counts}")
     ks.entries["blind_rotate_compact"]["launches"] = launches
     ks.entries["expand_karatsuba_step"]["launches"] = \
@@ -792,11 +926,13 @@ def phase6_three_forms(tp, ks, dev, card):
     bits_x, bits_y = idx % 2 == 0, idx % 3 == 0
     ct_x, ct_y = tp.encrypt(gen, sk, bits_x), tp.encrypt(gen, sk, bits_y)
 
+    n_lwe = params.lwe_size
     forms = [  # (name, tuning, kernels that must launch once per step/layer)
         ("baked depth 1", dict(karatsuba_depth=1),
-         {"blind_rotate": 1}),
+         {"blind_rotate": 1, "rotate_decompose_rows": n_lwe}),
         ("compact", dict(karatsuba_depth=1, bs_bake_budget=0),
-         {"blind_rotate_compact": 1, "expand_karatsuba_step": 1}),
+         {"blind_rotate_compact": 1, "expand_karatsuba_step": 1,
+          "rotate_decompose_rows": n_lwe}),
         ("dense depth 0", dict(karatsuba_depth=0),
          {"rotate_decompose": params.lwe_size,
           "cmux_matmul": params.lwe_size}),
@@ -878,10 +1014,10 @@ def mk_ceremony(tp, mk, params, parties, gen, dev):
     return sks, ck, seconds, key_bytes
 
 
-def mk_nand_chain(mk, ck, sks, gen, layers, batch, dev):
-    """mk_encrypt, `layers` chained mk_gate_nand, mk_decrypt. Returns the
-    inputs, the first layer's output, the number correct and the chain's
-    seconds."""
+def mk_nand_chain(mk, ck, sks, gen, layers, batch, dev, allowed=0):
+    """mk_encrypt, `layers` chained mk_gate_nand, mk_decrypt; at most
+    `allowed` wrong. Returns the inputs, the first layer's output, the
+    number correct and the chain's seconds."""
     idx = torch.arange(batch, device=dev)
     bits_x, bits_y = idx % 2 == 0, idx % 3 == 0
     ct_x = mk.mk_encrypt(gen, sks, bits_x)
@@ -900,7 +1036,8 @@ def mk_nand_chain(mk, ck, sks, gen, layers, batch, dev):
     check(out.a.shape == (batch, len(sks), sks[0].params.lwe_size)
           and out.b.shape == (batch,), "MK output shape")
     check(bool(torch.isfinite(out.cv).all()), "non-finite noise variance")
-    check(correct == batch, f"{correct}/{batch} MK gates decrypt correctly")
+    check(correct >= batch - allowed,
+          f"{correct}/{batch} MK gates decrypt correctly")
     return (ct_x, ct_y), first, correct, chain_s
 
 
@@ -930,7 +1067,8 @@ def phase8_mk_two_party(tp, ks, dev, card):
         mk, ck, sks, gen, MK_LAYERS, BATCH, dev)
     counts = {k: v for k, v in read_counts(wrappers).items() if v}
     expected = {"mk_blind_rotate_compact": MK_LAYERS * parties,
-                "expand_karatsuba_step": MK_LAYERS * parties}
+                "expand_karatsuba_step": MK_LAYERS * parties,
+                "rotate_decompose_rows": MK_LAYERS * parties * n_lwe}
     check(counts == expected,
           f"MK compact path launches {counts}, expected {expected}")
     ks.entries["mk_blind_rotate_compact"]["launches"] = \
@@ -980,7 +1118,8 @@ def phase8_mk_two_party(tp, ks, dev, card):
         layer_s = time.perf_counter() - t0
         counts = {k: v for k, v in read_counts(wrappers).items() if v}
         expected = {kernel: n_launch,
-                    "expand_karatsuba_step": parties * n_lwe}
+                    "expand_karatsuba_step": parties * n_lwe,
+                    "rotate_decompose_rows": parties * n_lwe}
         check(counts == expected,
               f"MK {name} path launches {counts}, expected {expected}")
         ks.entries[kernel]["launches"] = counts[kernel]
@@ -1015,14 +1154,61 @@ def phase8_mk_two_party(tp, ks, dev, card):
           f"{n_msgs} messages in {pbs_s:.3f} s = {n_msgs / pbs_s:.1f} LUTs/s "
           f"| {correct}/{n_msgs} correct | launches {counts} | {card}",
           flush=True)
+    mk_more_on_card(mk, pbs, ck, sks, gen, dev, card)
+
+
+def mk_more_on_card(mk, pbs, ck, sks, gen, dev, card):
+    """On the 2-party lownoise key, at a batch of 128, one call each: every
+    MK gate other than NAND and the MK many-LUT; every output correct."""
+    batch = 128
+    idx = torch.arange(batch, device=dev)
+    bx, by, bz = idx % 2 == 0, idx % 3 == 0, idx % 5 < 2
+    cx, cy, cz = (mk.mk_encrypt(gen, sks, bits) for bits in (bx, by, bz))
+    gates = [
+        ("and", lambda: mk.mk_gate_and(ck, cx, cy), bx & by),
+        ("or", lambda: mk.mk_gate_or(ck, cx, cy), bx | by),
+        ("xor", lambda: mk.mk_gate_xor(ck, cx, cy), bx ^ by),
+        ("xnor", lambda: mk.mk_gate_xnor(ck, cx, cy), ~(bx ^ by)),
+        ("nor", lambda: mk.mk_gate_nor(ck, cx, cy), ~(bx | by)),
+        ("andny", lambda: mk.mk_gate_andny(ck, cx, cy), ~bx & by),
+        ("andyn", lambda: mk.mk_gate_andyn(ck, cx, cy), bx & ~by),
+        ("orny", lambda: mk.mk_gate_orny(ck, cx, cy), ~bx | by),
+        ("oryn", lambda: mk.mk_gate_oryn(ck, cx, cy), bx | ~by),
+        ("not", lambda: mk.mk_gate_not(ck, cx), ~bx),
+        ("mux", lambda: mk.mk_gate_mux(ck, cx, cy, cz),
+         torch.where(bx, by, bz)),
+    ]
+    results = []
+    for name, fn, want in gates:
+        correct = int((mk.mk_decrypt(sks, fn()) == want).sum())
+        check(correct == batch, f"MK {name}: {correct}/{batch} correct")
+        results.append(f"{name} {correct}/{batch}")
+    space, q = 4, 2
+    msgs = idx % space
+    tables = torch.tensor([[2, 0, 3, 1], [1, 3, 0, 2]], device=dev)
+    wrappers = reset_counts()
+    out = pbs.mk_programmable_bootstrap_many(
+        ck.bootstrap_key, ck.keyswitch_keys, tables,
+        pbs.mk_encrypt_pbs(gen, sks, msgs, space), space, q)
+    got = pbs.mk_decrypt_pbs(sks, out, space)
+    counts = {k: v for k, v in read_counts(wrappers).items() if v}
+    check(tuple(got.shape) == (batch, q), "MK many-LUT output shape")
+    many_ok = [int((got[:, r] == tables[r][msgs]).sum()) for r in range(q)]
+    check(many_ok == [batch] * q, f"MK many-LUT: {many_ok} of {batch}")
+    print(f"[8 MK more] gates on {batch}: {', '.join(results)} | "
+          f"mk_programmable_bootstrap_many q={q}: {many_ok} of {batch} "
+          f"correct, launches {counts} | {card}", flush=True)
 
 
 def phase9_mk_more_parties(tp, dev, card):
     from tfhe_tpu_torch import mk
 
-    for parties, make_params, batch, sparse in [
-            (4, mk.mktfhe_parameters_4party, 1024, False),
-            (8, mk.mktfhe_parameters_8party, 256, True)]:
+    # the reference-fidelity 2-party preset fails ~1.5% of its gates by
+    # design (mk/api.py): 64 gates expect about 1 wrong, 4 are allowed
+    for parties, make_params, batch, sparse, allowed in [
+            (2, mk.mktfhe_parameters_2party, 64, False, MAX_WRONG),
+            (4, mk.mktfhe_parameters_4party, 1024, False, 0),
+            (8, mk.mktfhe_parameters_8party, 256, True, 0)]:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1035,11 +1221,12 @@ def phase9_mk_more_parties(tp, dev, card):
               f"{parties}-party key: sparse {bk.sparse}, block {bk.block}")
         wrappers = reset_counts()
         _, _, correct, layer_s = mk_nand_chain(mk, ck, sks, gen, 1, batch,
-                                               dev)
+                                               dev, allowed)
         counts = {k: v for k, v in read_counts(wrappers).items() if v}
         check(counts.get("mk_blind_rotate_compact") == parties,
               f"{parties}-party launches {counts}")
-        print(f"[9 MK {parties} parties] ceremony {ceremony_s:.2f} s | key "
+        preset = make_params.__name__.removeprefix("mktfhe_parameters_")
+        print(f"[9 MK {preset}] ceremony {ceremony_s:.2f} s | key "
               f"{key_bytes / 1e6:.1f} MB"
               f"{' (sparse-stored)' if sparse else ''} | one NAND layer x "
               f"{batch} in {layer_s:.3f} s = {batch / layer_s:.1f} gates/s, "
@@ -1132,7 +1319,8 @@ def phase10_pbs(tp, ks, dev, card):
     many_ok = [int((got[:, r] == tables[r][msgs]).sum()) for r in range(2)]
     check(many_ok == [BATCH, BATCH], f"many-LUT: {many_ok} of {BATCH}")
     counts = {k: v for k, v in read_counts(wrappers).items() if v}
-    check(counts == {"blind_rotate": 3}, f"PBS launches {counts}")
+    check(counts == {"blind_rotate": 3, "rotate_decompose_rows": 3 * bk.n},
+          f"PBS launches {counts}")
     print(f"[10 PBS] 128_pbs keygen {keygen_s:.2f} s | key {key_mb(ck):.1f} "
           f"MB | LUT [2, 0, 3, 1] twice over {BATCH} messages: second call "
           f"{lut_s:.3f} s = {BATCH / lut_s:.1f} LUTs/s | {correct}/{BATCH} "
@@ -1226,7 +1414,8 @@ def phase11_radix(tp, dev, card):
     add_s = time.perf_counter() - t0
     counts = {k: v for k, v in read_counts(wrappers).items() if v}
     # many-LUT: one rotation per digit position, 4 positions, two adds
-    check(counts == {"blind_rotate": 2 * bits // 2},
+    check(counts == {"blind_rotate": 2 * bits // 2,
+                     "rotate_decompose_rows": 2 * bits // 2 * bk.n},
           f"radix_add launches {counts}")
     check(out.a.shape == (RADIX_WORDS, bits // 2, params.lwe_size),
           "radix_add output shape")
@@ -1298,6 +1487,46 @@ def phase11_radix(tp, dev, card):
     print(f"[11 radix ops] {verdict}, {verdict_r} | {n} 4-bit words in "
           f"{div_s:.3f} s | {card}", flush=True)
 
+    # 16-bit words, equality, logical and arithmetic right shifts, and the
+    # signed ops (two's complement words), one call each
+    a16, b16 = (idx[:n] * 257 + 3) % 65536, (idx[:n] * 8191 + 77) % 65536
+    c16 = [radix.encrypt_radix(gen, sk, v, 16) for v in (a16, b16)]
+    beq = torch.where(idx[:n] % 2 == 0, av, bv)
+    ceq = radix.encrypt_radix(gen, sk, beq, bits)
+    sa = (idx[:n] * 37) % 256 - 128
+    sb = (idx[:n] * 91 + 5) % 256 - 128
+    csa, csb = (radix.encrypt_radix_signed(gen, sk, v, bits) for v in (sa, sb))
+
+    def sdec(word):
+        return radix.decrypt_radix_signed(sk, word).to(torch.int64)
+
+    more = [
+        ("radix_add 16-bit", lambda: dec(radix.radix_add(ck, *c16)),
+         (a16 + b16) % 65536),
+        ("radix_eq", lambda: radix.decrypt_pbs(
+            sk, radix.radix_eq(ck, ca, ceq), radix.SPACE),
+         (av == beq).to(torch.int32)),
+        ("radix_shift_right 3",
+         lambda: dec(radix.radix_shift_right(ck, ca, 3)), av >> 3),
+        ("radix_shift_right_arith 2",
+         lambda: sdec(radix.radix_shift_right_arith(ck, csa, 2)), sa >> 2),
+        ("radix_abs", lambda: sdec(radix.radix_abs(ck, csa)),
+         torch.where(sa == -128, sa, sa.abs())),
+        ("radix_geq_signed", lambda: radix.decrypt_pbs(
+            sk, radix.radix_geq_signed(ck, csa, csb), radix.SPACE),
+         (sa >= sb).to(torch.int32)),
+        ("radix_min_signed", lambda: sdec(radix.radix_min_signed(ck, csa,
+                                                                 csb)),
+         torch.minimum(sa, sb)),
+    ]
+    for name, fn, want in more:
+        wrappers = reset_counts()
+        got = fn()
+        rotations = read_counts(wrappers)["blind_rotate"]
+        verdict = count_wrong(name, got, want, fail * n * max(rotations, 1))
+        print(f"[11 radix more] {verdict} | {n} words | {rotations} "
+              f"rotation launches | {card}", flush=True)
+
 
 def first_n(x, n):
     """The first n entries of a sample's leading batch axis."""
@@ -1333,7 +1562,8 @@ def phase12_radix_reliable(tp, dev, card):
     counts = {k: v for k, v in read_counts(wrappers).items() if v}
     # stacked tables: one rotation of 2 x words per digit position
     check(counts == {"blind_rotate_compact": bits // 2,
-                     "expand_karatsuba_step": bits // 2},
+                     "expand_karatsuba_step": bits // 2,
+                     "rotate_decompose_rows": bits // 2 * bk.n},
           f"reliable radix_add launches {counts}")
     verdict = count_wrong("radix_add", radix.decrypt_radix(sk, out),
                           (av + bv) % 256, 1.6e-10 * words, allowed=0)
@@ -1421,10 +1651,153 @@ def phase13_circuits_netlist(tp, dev, card):
           f"{card}", flush=True)
 
 
+# The earlier tree's two rotate/decompose kernels, bound through a C
+# wrapper compiled against that tree's sources (its cmux_step.cu defines
+# tfhe_rotate_decompose; its rotate/decompose kernel had no entry alone).
+_EARLIER_ROWS_CU = r"""
+#include "{csrc}/cmux_step.cu"
+extern "C" int earlier_rotate_decompose_rows(
+    const int32_t* acc, const int32_t* bara, int8_t* lhs,
+    const int32_t* combos, int n_combos, int batch, int k1, int n, int l,
+    int b, int m, int lhs_rows, int offset, void* stream) {{
+  const Params p = make_params(batch, k1, n, l, b, m, lhs_rows, offset);
+  cudaError_t err = allow_digit_smem(p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_rotate_decompose(acc, bara, lhs, combos, n_combos, p,
+                                      static_cast<cudaStream_t>(stream));
+}}
+"""
+
+
+def rows_against(earlier: str) -> int:
+    """`python3 chip_smoke.py --rows-against DIR`: the two rotate/decompose
+    kernels of this tree against those of the tree unpacked at DIR (an
+    earlier commit, whose own rotate/decompose kernel takes its combo table
+    in device memory), on one card in one process: each shape timed
+    earlier, this, this, earlier, with CUDA events; the earlier kernel also
+    without combos (its raw digits only), and so this one; outputs compared
+    byte for byte. Writes
+    chiprun_out/rows_against.json."""
+    import ctypes
+    import os
+    from pathlib import Path
+
+    from tfhe_tpu_torch.ops import _build, cmux_step
+    from tfhe_tpu_torch.ops.blind_rotate import (
+        digit_rows_kernel,
+        digit_rows_plain,
+    )
+    from tfhe_tpu_torch.ops.dots import int_table
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    out_dir = Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    csrc = (Path(earlier) / "tfhe_tpu_torch" / "csrc").resolve()
+    src = out_dir / "earlier_rows.cu"
+    src.write_text(_EARLIER_ROWS_CU.format(csrc=csrc))
+    lib_path = out_dir / "libearlier_rows.so"
+    subprocess.run([_build._nvcc(), *_build._FLAGS, "-shared", "-o",
+                    str(lib_path), str(src)], check=True, timeout=600)
+    old = ctypes.CDLL(str(lib_path.resolve()))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    old.earlier_rotate_decompose_rows.argtypes = [vp, vp, vp, vp] \
+        + [i32] * 9 + [vp]
+    old.tfhe_rotate_decompose.argtypes = [vp, vp, vp] + [i32] * 8 + [vp]
+    _build.load()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+    def earlier_rows(acc, bara, combos, lhs_rows, kw):
+        bsz, k1, n = acc.shape
+        lhs = torch.empty((bsz, lhs_rows * k1 * kw["l"] * T),
+                          dtype=torch.int8, device=dev)
+        table = int_table(combos or [(0, 0, 0, 0)], str(dev))
+        err = old.earlier_rotate_decompose_rows(
+            acc.data_ptr(), bara.data_ptr(), lhs.data_ptr(),
+            table.data_ptr(), len(combos), bsz, k1, n, kw["l"], kw["b"],
+            n // T, lhs_rows, kw["offset"], stream)
+        check(err == 0, f"earlier rotate/decompose kernel: error {err}")
+        return lhs
+
+    record = {"card": card, "shapes": {}}
+    for shape in ROW_TIMED:
+        batch = 256 if shape == "MK_8party_K9" else BATCH
+        acc, bara, combos, lhs_rows, kw, first = rows_case(gen, shape, batch)
+        got = digit_rows_kernel(acc, bara, combos, lhs_rows, **kw)
+        check(torch.equal(got[:, first:], earlier_rows(
+            acc, bara, combos, lhs_rows, kw)[:, first:]) and torch.equal(
+            got[:, first:], digit_rows_plain(acc, bara, combos, lhs_rows,
+                                             **kw)[:, first:]),
+              f"{shape}: this kernel != the earlier one or plain")
+
+        def this():
+            return digit_rows_kernel(acc, bara, combos, lhs_rows, **kw)
+
+        def before():
+            return earlier_rows(acc, bara, combos, lhs_rows, kw)
+
+        times = [cuda_ms(fn, reps=10) for fn in (before, this, this, before)]
+        rec = {"B": batch, "earlier_ms": (times[0] + times[3]) / 2,
+               "ms": (times[1] + times[2]) / 2, "turns_ms": times}
+        rec["bound_ms"], rec["bound_by"] = rows_bound(acc, combos, lhs_rows,
+                                                      kw, first)
+        rec["earlier_raw_only_ms"] = cuda_ms(
+            lambda: earlier_rows(acc, bara, [], lhs_rows, kw), reps=10)
+        rec["raw_only_ms"] = cuda_ms(lambda: digit_rows_kernel(
+            acc, bara, [], lhs_rows, **kw), reps=10)
+        record["shapes"][shape] = rec
+        print(f"[rows] {shape} B={batch}: earlier {rec['earlier_ms']:.4f} ms "
+              f"(raw only {rec['earlier_raw_only_ms']:.4f}), this "
+              f"{rec['ms']:.4f} ms (raw only {rec['raw_only_ms']:.4f}), bound "
+              f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}; turns "
+              f"{[round(x, 4) for x in times]} | {card}", flush=True)
+
+    # the dense step's kernel: 128_fast at depth 0, B = 4096
+    acc, _, bara_t, kw = random_case(gen, 5, 256, 2, 8, 0, 2, BATCH,
+                                     form="dense")
+    dims = (BATCH, 5, 256, 2, 8, 2, 1)
+    offset = cmux_step.decomp_offset(2, 8, True)
+
+    def dense(lib, name):
+        buf = torch.empty((BATCH, 1, 2 * 5 * 2 * T), dtype=torch.int8,
+                          device=dev)
+        err = getattr(lib, name)(acc.data_ptr(), bara_t[1].data_ptr(),
+                                 buf.data_ptr(), *dims, offset, stream)
+        check(err == 0, f"{name}: error {err}")
+        return buf
+
+    new_lib = _build.load()
+    check(torch.equal(dense(new_lib, "tfhe_rotate_decompose"),
+                      dense(old, "tfhe_rotate_decompose")),
+          "dense: this kernel != the earlier one")
+    times = [cuda_ms(lambda lib=lib: dense(lib, "tfhe_rotate_decompose"),
+                     reps=10) for lib in (old, new_lib, new_lib, old)]
+    # acc read once, the digits (M*P*T bytes a row) written once
+    bound, by = bound_ms(nbytes(acc) + BATCH * 2 * 5 * 2 * T + 4 * BATCH, 0,
+                         PEAK_ALU_OPS_PER_S)
+    record["dense_128_fast_depth0"] = {
+        "B": BATCH, "earlier_ms": (times[0] + times[3]) / 2,
+        "ms": (times[1] + times[2]) / 2, "turns_ms": times,
+        "bound_ms": bound, "bound_by": by}
+    print(f"[rows] dense 128_fast depth 0 B={BATCH}: earlier "
+          f"{(times[0] + times[3]) / 2:.4f} ms, this "
+          f"{(times[1] + times[2]) / 2:.4f} ms, bound {bound:.4f} ms by {by}; "
+          f"turns {[round(x, 4) for x in times]} | {card}", flush=True)
+    (out_dir / "rows_against.json").write_text(json.dumps(record, indent=1))
+    os.remove(lib_path)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rows-against"]:
+        return rows_against(sys.argv[2])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -1445,11 +1818,16 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log = (lib_path.parent / "build.log").read_text().splitlines()
     report = []
-    for kernel in ("rotate_decompose_kernelIa", "rotate_decompose_kernelIs",
+    for kernel in ("rotate_decompose_kernelILi1ELb0E",
+                   "rotate_decompose_kernelILi2ELb0E",
+                   "rotate_decompose_kernelILi8ELb0E",
+                   "rotate_decompose_kernelILi8ELb1E",
+                   "rotate_decompose_kernelILi16ELb0E",
                    "leaf_dots_kernel", "mk_unit_dots_kernel",
                    "expand_kernelILb0", "expand_kernelILb1",
-                   "rotate_decompose_dense_kernel", "fused_step_kernelIa",
-                   "fused_step_kernelIs"):
+                   "rotate_decompose_dense_kernelILi2E",
+                   "rotate_decompose_dense_kernelILi8E",
+                   "fused_step_kernelIa", "fused_step_kernelIs"):
         at = next((i for i, ln in enumerate(log)
                    if "Compiling entry function" in ln and kernel in ln), None)
         used = next((x for x in log[at:] if "Used" in x), None) \

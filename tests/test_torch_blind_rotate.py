@@ -32,6 +32,7 @@ from tfhe_tpu_torch.ops import dots
 from tfhe_tpu_torch.ops.blind_rotate import (
     blind_rotate_kernel,
     blind_rotate_plain,
+    digit_rows_plain,
     dots_tables,
     kernel_tables,
     product_tables,
@@ -123,39 +124,19 @@ def emulate_dots(acc, lhs8, key, tables, *, t, poly_columns,
 
 
 def emulate_kernel(acc, e_all, bara_t, *, l, b, t, plan, balanced):
-    """The CUDA kernels' arithmetic, step by step, from their tables."""
+    """The CUDA kernels' arithmetic, step by step, from their tables: the
+    digit rows (`digit_rows_plain`, the first launch), then the dots."""
     bsz, k1, n = acc.shape
     m, pt = n // t, k1 * l * t
     combos, _, _, lhs_rows = kernel_tables(plan, k1 * l, t)
     tables = dots_tables(plan, k1, l, t)
     offset = decomp_offset(l, b, balanced)
+    if b > 8:  # the raw segments are not part of the rows: no product reads
+        assert all(pr[0] >= m * pt for pr in tables.products)
     acc = acc.to(torch.int64)
     for s in range(e_all.shape[0]):
-        sh = bara_t[s].to(torch.int64) & (2 * n - 1)
-        src = (torch.arange(n)[None, :] - sh[:, None]) & (2 * n - 1)
-        doubled = torch.cat([acc, -acc], dim=-1)
-        rot = torch.gather(doubled, -1, src[:, None, :].expand(bsz, k1, n))
-        shifted = (rot - acc + offset) & 0xFFFFFFFF
-        lhs = torch.zeros((bsz, lhs_rows, pt), dtype=torch.int64)
-        for j in range(k1):
-            for il in range(l):
-                d = ((shifted[:, j] >> (32 - (il + 1) * b))
-                     & ((1 << b) - 1)) - (1 << (b - 1))
-                for i in range(m):
-                    seg = slice((j * l + il) * t, (j * l + il + 1) * t)
-                    lhs[:, i, seg] = d[:, i * t:(i + 1) * t]
-        for dst, mask, two, hi in combos:
-            v = sum(lhs[:, blk] for blk in range(m) if mask >> blk & 1)
-            if two:
-                lo = ((v & 127) ^ 64) - 64
-                lhs[:, dst], lhs[:, hi] = lo, (v - lo) // 128
-            else:
-                lhs[:, dst] = v
-        if b > 8:  # the kernel holds wide raw digits in shared memory only
-            assert all(pr[0] >= m * pt for pr in tables.products)
-            lhs[:, :m] = 0
-        assert lhs.min() >= -128 and lhs.max() <= 127
-        lhs8 = lhs.to(torch.int8).reshape(bsz, lhs_rows * pt)
+        lhs8 = digit_rows_plain(acc.to(torch.int32), bara_t[s], combos,
+                                lhs_rows, l=l, b=b, t=t, offset=offset)
         acc = emulate_dots(acc, lhs8, e_all[s], tables, t=t,
                            poly_columns=True)
         acc = ((acc + 2**31) & 0xFFFFFFFF) - 2**31
@@ -310,3 +291,4 @@ def test_kernel_matches_plain_on_card():
         assert torch.equal(got, want)
         with pytest.raises(ValueError, match="reference layout"):
             blind_rotate_kernel(acc, ref, bara_t, **kw)
+

@@ -19,6 +19,7 @@ reaches its Pallas kernel it runs as its own tests run it on the CPU:
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -250,24 +251,34 @@ def m1_params(cls):
         max_parties=1, gadget_balanced=True)
 
 
-@pytest.mark.parametrize("geometry", ["toy", "m1"])
-@pytest.mark.parametrize("cmux", ["pallas", "xla"])
-def test_nand_through_reference_compact_cloud_key(cmux, geometry):
+@functools.lru_cache(maxsize=None)
+def reference_compact_keys(geometry):
+    """One reference compact key pair per geometry, its port twin and two
+    encrypted inputs, made once for the module (both engines' cases read
+    them)."""
     if geometry == "toy":
         params_j, params_p = tt.tfhe_parameters_toy(), tp.tfhe_parameters_toy()
     else:
         params_j, params_p = m1_params(JParams), m1_params(tp.SchemeParameters)
     with j_tuning.override(bs_bake_budget=0):
         sk, ck = tt.make_key_pair(jax.random.PRNGKey(5), params_j)
-    assert ck.bootstrap_key.compact
     ck_p = interop.cloud_key_from_numpy(
         params_p, fields(ck.bootstrap_key), fields(ck.keyswitch_key),
         device="cpu")
-    assert ck_p.bootstrap_key.compact
     xs = jnp.asarray([False, False, True, True])
     ys = jnp.asarray([False, True, False, True])
     ct_x = tt.encrypt(jax.random.PRNGKey(1), sk, xs)
     ct_y = tt.encrypt(jax.random.PRNGKey(2), sk, ys)
+    return params_p, sk, ck, ck_p, xs, ys, ct_x, ct_y
+
+
+@pytest.mark.parametrize("geometry", ["toy", "m1"])
+@pytest.mark.parametrize("cmux", ["pallas", "xla"])
+def test_nand_through_reference_compact_cloud_key(cmux, geometry):
+    params_p, sk, ck, ck_p, xs, ys, ct_x, ct_y = \
+        reference_compact_keys(geometry)
+    assert ck.bootstrap_key.compact
+    assert ck_p.bootstrap_key.compact
     with j_tuning.override(cmux=cmux):
         want = j_gates.gate_nand(ck, ct_x, ct_y)
     got = p_gates.gate_nand(

@@ -21,6 +21,7 @@ step `cmux_step_pallas` runs in interpret mode on the CPU
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -233,16 +234,17 @@ def m1_params(cls):
         max_parties=1, gadget_balanced=True)
 
 
-@pytest.mark.parametrize("geometry", ["toy", "m1"])
-@pytest.mark.parametrize("cmux", ["pallas", "xla"])
-def test_nand_through_reference_depth0_cloud_key(cmux, geometry):
+@functools.lru_cache(maxsize=None)
+def reference_depth0_keys(geometry):
+    """One reference depth-0 key pair per geometry, its port twin and two
+    encrypted inputs, made once for the module (both engines' cases read
+    them)."""
     if geometry == "toy":
         params_j, params_p = tt.tfhe_parameters_toy(), tp.tfhe_parameters_toy()
     else:
         params_j, params_p = m1_params(JParams), m1_params(tp.SchemeParameters)
     with j_tuning.override(karatsuba_depth=0):
         sk, ck = tt.make_key_pair(jax.random.PRNGKey(6), params_j)
-    assert ck.bootstrap_key.depth == 0 and not ck.bootstrap_key.compact
     ck_p = interop.cloud_key_from_numpy(
         params_p, fields(ck.bootstrap_key), fields(ck.keyswitch_key),
         device="cpu")
@@ -250,6 +252,15 @@ def test_nand_through_reference_depth0_cloud_key(cmux, geometry):
     ys = jnp.asarray([False, True, False, True])
     ct_x = tt.encrypt(jax.random.PRNGKey(1), sk, xs)
     ct_y = tt.encrypt(jax.random.PRNGKey(2), sk, ys)
+    return params_p, sk, ck, ck_p, xs, ys, ct_x, ct_y
+
+
+@pytest.mark.parametrize("geometry", ["toy", "m1"])
+@pytest.mark.parametrize("cmux", ["pallas", "xla"])
+def test_nand_through_reference_depth0_cloud_key(cmux, geometry):
+    params_p, sk, ck, ck_p, xs, ys, ct_x, ct_y = \
+        reference_depth0_keys(geometry)
+    assert ck.bootstrap_key.depth == 0 and not ck.bootstrap_key.compact
     with j_tuning.override(cmux=cmux):
         want = j_gates.gate_nand(ck, ct_x, ct_y)
     got = p_gates.gate_nand(

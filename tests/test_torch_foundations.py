@@ -78,6 +78,8 @@ def test_dtot32():
     rng = np.random.default_rng(1)
     d = (rng.standard_normal(256) * 2.0**-10).astype(np.float32)
     d[:3] = [0.0, -0.25, 0.4999]
+    # outside [-0.5, 0.5) the cast saturates, and NaN gives 0
+    d[3:8] = [0.5, 0.75, 1.0, -0.75, np.nan]
     same(p_num.dtot32(torch.from_numpy(d)), j_num.dtot32(jnp.asarray(d)))
 
 
@@ -153,7 +155,7 @@ def test_lwe_cores():
     same(got.b, ref.b)
     same(p_lwe.lwe_phase(got, torch.from_numpy(key)),
          j_lwe.lwe_phase(ref, jnp.asarray(key)))
-    triv_p = p_lwe.lwe_noiseless_trivial(-5, n, batch)
+    triv_p = p_lwe.lwe_noiseless_trivial(-5, n, batch, device="cpu")
     triv_j = j_lwe.lwe_noiseless_trivial(-5, n, batch)
     for fp, fj in zip(triv_p, triv_j):
         same(fp, fj)

@@ -216,7 +216,8 @@ def test_sample_arithmetic_phase_and_extract():
         p_mki.mk_lwe_phase(xp, tt_(keys)).numpy(),
         np.asarray(j_mki.mk_lwe_phase(xj, jnp.asarray(keys))))
     assert_samples_equal(
-        p_mki.mk_lwe_noiseless_trivial(7, n, parties, (batch,)),
+        p_mki.mk_lwe_noiseless_trivial(7, n, parties, (batch,),
+                                       device="cpu"),
         j_mki.mk_lwe_noiseless_trivial(7, n, parties, (batch,)))
     mu = words(rng, (batch, N))
     triv_j = j_mki.mk_tlwe_noiseless_trivial(jnp.asarray(mu), parties)

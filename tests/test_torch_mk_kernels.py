@@ -205,7 +205,8 @@ def test_compact_plain_matches_pallas_interpret(parties, party, l, b):
 
 def emulate_mk_step(acc, e_step, bara, l, b, t, plan, nz, balanced):
     """One multi-key step as the CUDA kernels compute it: the digit row from
-    the combo table (rotate_decompose_kernel), then the products of
+    the combo table (`digit_rows_plain`, rotate_decompose_kernel's
+    function), then the products of
     mk_unit_dots_kernel, each once with its targets: at T = 128 from the
     encoded rows by work item (`emulate_dots`), at a toy T straight from
     `mk_product_tables`."""
@@ -213,32 +214,12 @@ def emulate_mk_step(acc, e_step, bara, l, b, t, plan, nz, balanced):
     m, pt, lt, nzn = n // t, k1 * l * t, l * t, len(nz)
     combos, _, _, lhs_rows = p_br.kernel_tables(plan, k1 * l, t)
     products = mk_cmux.mk_product_tables(plan, l, k1, t, nz)
-    offset = decomp_offset(l, b, balanced) & 0xFFFFFFFF
-    half, mask = 1 << (b - 1), (1 << b) - 1
+    offset = decomp_offset(l, b, balanced)
 
     a = acc.astype(np.int64) & 0xFFFFFFFF
-    r = np.arange(n)
-    lhs = np.zeros((bsz, lhs_rows * pt), np.int64)
-    for row in range(bsz):
-        s = int(bara[row]) & (2 * n - 1)
-        src = (r - s) & (2 * n - 1)
-        doubled = np.concatenate([a[row], (-a[row]) & 0xFFFFFFFF], axis=-1)
-        shifted = (doubled[:, src] - a[row] + offset) & 0xFFFFFFFF  # [K, N]
-        dig = np.zeros((m, k1, l, t), np.int64)
-        for il in range(l):
-            d = ((shifted >> (32 - (il + 1) * b)) & mask) - half
-            dig[:, :, il, :] = d.reshape(k1, m, t).transpose(1, 0, 2)
-        dig = dig.reshape(m, pt)
-        if b <= 8:  # wider digits stay out of the row: no product reads them
-            lhs[row, :m * pt] = dig.reshape(-1)
-        for dst, src_mask, two_limb, hi_dst in combos:
-            v = sum(dig[blk] for blk in range(m) if src_mask >> blk & 1)
-            if two_limb:
-                lo = ((v & 127) ^ 64) - 64
-                lhs[row, hi_dst * pt:(hi_dst + 1) * pt] = (v - lo) // 128
-                v = lo
-            lhs[row, dst * pt:(dst + 1) * pt] = v
-    assert lhs.min() >= -128 and lhs.max() <= 127  # every operand is int8
+    lhs = p_br.digit_rows_plain(
+        torch.from_numpy(acc), torch.from_numpy(np.asarray(bara)), combos,
+        lhs_rows, l=l, b=b, t=t, offset=offset).numpy().astype(np.int64)
 
     if t == dots.CHUNK:
         tables = dots.encode_multi_key(products, k1, m, pt, lt, nzn)
@@ -342,10 +323,14 @@ def test_rotation_geometry_served_and_refused():
         m, pt = p_br.check_rotation_geometry(
             "test", k1, 1024, l, b, 128, p_kar.karatsuba_plan(8, 2, b))
         assert (m, pt) == (8, k1 * l * 128)
-    assert 8 * 9 * 8 * 128 == 73728 > 48 * 1024  # needs the opt-in limit
+    # one staged accumulator row: 36,864 bytes at 8 parties, within the
+    # 48 KB a block takes without the opt-in; N = 2048 at K = 9 opts in
+    assert 9 * 1024 * 4 == 36864 <= 48 * 1024
+    p_br.check_rotation_geometry("test", 9, 2048, 16, 2, 128,
+                                 p_kar.karatsuba_plan(16, 2, 2))
     with pytest.raises(ValueError, match="232448 bytes of shared memory"):
         p_br.check_rotation_geometry(
-            "test", 9, 2048, 16, 2, 128, p_kar.karatsuba_plan(16, 2, 2))
+            "test", 29, 2048, 1, 2, 128, p_kar.karatsuba_plan(16, 2, 2))
     with pytest.raises(ValueError, match="block T must be 128"):
         p_br.check_rotation_geometry("test", 3, 256, 4, 7, 32,
                                      p_kar.karatsuba_plan(8, 2, 7))
@@ -395,11 +380,14 @@ def test_mk_kernels_match_plain_on_card():
         bara_t = torch.from_numpy(bara).to(dev)
         e_chunk = torch.stack([mk_cmux.expand_sparse(
             sel[s], t=t, plan=plan, nz=nz, l=l, preselected=True)
-            for s in range(steps)])
+            for s in range(steps)])  # K-major on the card
+        e_ref = dots.from_kmajor(e_chunk)
         assert torch.equal(
             mk_cmux.cmux_step_sparse_kernel(acc, e_chunk[1], bara_t[1], **kw),
-            mk_cmux.cmux_step_sparse_plain(acc, e_chunk[1], bara_t[1], **kw))
-        want = mk_cmux.mk_blind_rotate_chunk_plain(acc, e_chunk, bara_t, **kw)
+            mk_cmux.cmux_step_sparse_plain(acc, e_ref[1], bara_t[1], **kw))
+        with pytest.raises(ValueError, match="reference layout"):
+            mk_cmux.cmux_step_sparse_kernel(acc, e_ref[1], bara_t[1], **kw)
+        want = mk_cmux.mk_blind_rotate_chunk_plain(acc, e_ref, bara_t, **kw)
         assert torch.equal(mk_cmux.mk_blind_rotate_chunk_kernel(
             acc, e_chunk, bara_t, **kw), want)
         assert torch.equal(mk_cmux.mk_blind_rotate_compact_kernel(

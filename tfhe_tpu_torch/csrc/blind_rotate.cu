@@ -23,8 +23,8 @@
 // segments) once, with the output blocks it feeds). The kernels themselves
 // are in cmux_kernels.cuh and dots_sm90.cuh, shared with the compact and
 // dense entry points. Raw digits of a base above 2^8 do not fit a byte:
-// they are held as int16 in shared memory, and every leaf then reads
-// two-limb combos (the plan gives each leaf shifts (0, 7) at such a base).
+// they stay in registers, and every leaf then reads two-limb combos (the
+// plan gives each leaf shifts (0, 7) at such a base).
 //
 // The key arrives K-major (ops/dots.py:to_kmajor), int8[n, K, 4, T, R*P*T]:
 // relaid once when it reaches the card, so the dots kernel's TMA loads put
@@ -37,8 +37,8 @@
 // either stream the full 6.2 GB key once per small batch tile or need a grid
 // barrier per step. This kernel keeps the accumulator in device memory
 // (21 MB at B=4096, 128_fast) and runs each step as two launches on one
-// stream: rotate+decompose+combos (one block per ciphertext), then the dots
-// over (work item x batch tile), which add into acc in place. The
+// stream: rotate+decompose+combos (one block per ciphertext row), then the
+// dots over (work item x batch tile), which add into acc in place. The
 // accumulator, the digit operand and the step's key slice together fit the
 // 50 MB L2, so the step's key slice is read from device memory about once
 // and served to all batch tiles from L2.
@@ -50,8 +50,26 @@
 
 extern "C" {
 
+// The first launch of a step alone: acc int32[B, K, N], bara int32[B] ->
+// the digit operand lhs int8[B, lhs_rows*P*T] (for b > 8 its raw segments
+// [0, M) are left unwritten). combos: n_combos packed words in host memory
+// (Params).
+int tfhe_rotate_decompose_rows(const int32_t* acc, const int32_t* bara,
+                               int8_t* lhs, const int32_t* combos,
+                               int n_combos, int batch, int k1, int n, int l,
+                               int b, int m, int lhs_rows, int offset,
+                               void* stream) {
+  Params p;
+  cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
+                                combos, n_combos);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_rotate_decompose(acc, bara, lhs, p,
+                                      static_cast<cudaStream_t>(stream));
+}
+
 // The whole rotation: 2 launches per step on `stream`, acc updated in place.
-// Returns the first CUDA error (0 = none); does not synchronise.
+// combos: n_combos packed words in host memory (Params). Returns the first
+// CUDA error (0 = none); does not synchronise.
 int tfhe_blind_rotate(int32_t* acc, const int8_t* key, const int32_t* bara_t,
                       int8_t* lhs, const int32_t* combos, int n_combos,
                       const int32_t* products, const int32_t* targets,
@@ -60,8 +78,9 @@ int tfhe_blind_rotate(int32_t* acc, const int8_t* key, const int32_t* bara_t,
                       int n_steps, int lhs_rows, int total_rows, int offset,
                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Params p = make_params(batch, k1, n, l, b, m, lhs_rows, offset);
-  cudaError_t err = allow_digit_smem(p);
+  Params p;
+  cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
+                                combos, n_combos);
   if (err != cudaSuccess) return (int)err;
   DotsLaunch dots;
   err = make_dots(dots, lhs, p.lhs_stride, key, total_rows * p.pt, k1,
@@ -72,7 +91,7 @@ int tfhe_blind_rotate(int32_t* acc, const int8_t* key, const int32_t* bara_t,
   if (err != cudaSuccess) return (int)err;
   for (int s = 0; s < n_steps; ++s) {
     err = launch_step(acc, dots, s, false, bara_t + (size_t)s * batch, lhs,
-                      combos, n_combos, p, st);
+                      p, st);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

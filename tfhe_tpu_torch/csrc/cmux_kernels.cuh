@@ -20,12 +20,48 @@ namespace {
 
 constexpr int kT = 128;  // Toeplitz block size
 constexpr int kThreads = 256;
+constexpr int kCols = kT / 4;  // four-coefficient columns of a block: a warp
+constexpr int kMaxCombos = 64;
+constexpr int kMaxRowWarps = 16;  // a rotate/decompose block's warps
 
+// What the rotate/decompose launches take. combos[c] packs one combo write of
+// ops/blind_rotate.py:kernel_tables: src_block_mask | two_limb << 16 |
+// dst_seg << 17 | hi_seg << 24. It travels in the launch's parameters
+// (__grid_constant__), so every thread reads it from the constant cache.
 struct Params {
   int batch, k1, n, l, b, m, pt, lhs_stride, cols, offset;
+  int n_combos;
+  uint32_t combos[kMaxCombos];
 };
 
-// ((X^bara - 1) * acc)[j][r] + offset for one ciphertext: a = acc row
+// The rotate/decompose front half, shared by rotate_decompose_kernel (the
+// digit operand of the Karatsuba, compact and multi-key steps) and
+// rotate_decompose_dense_kernel (cmux_step.cu): for each ciphertext row,
+// ((X^bara - 1) * acc)[j][r] + offset, cut into l signed b-bit digits.
+//
+// Design, for a function that moves bytes: one block per ciphertext row.
+// The row (K*N words) is read from device memory once, by 16-byte
+// cp.async copies into shared memory; the rotation's gather then reads that
+// staged copy. A warp owns one polynomial j (or one (j, level) item,
+// see per_level_items), and lane u4 the coefficients [4*u4, 4*u4 + 4) of
+// every block i: it holds the same lanes (j, il, u) of all M blocks in
+// registers, so each raw digit and each combo (a sum over masked blocks at
+// one lane) is register arithmetic, with no digit buffer and no barrier
+// after the staging. Each store is the 4 bytes of 4 consecutive u of one
+// (segment, j, il), the warp's 32 lanes on one 128-byte line: every segment
+// byte is written once, by full-line stores. Per-level items give a row
+// K*l warps (up to 16; more loop) and keep a lane's registers to one
+// level's digits; the rotation is then recomputed per level from shared
+// memory.
+//
+// The gather: source word src = (r - s) mod 2N of the doubled polynomial
+// [poly, -poly]. For 4 consecutive r the sources are consecutive, at an
+// offset o = src & 3 that is the same for the whole warp; the lane reads
+// the aligned 16-byte words q = src >> 2 and q + 1 (32 lanes on 32
+// consecutive 16-byte words: no bank conflict) and keeps words o..o+3.
+
+// ((X^bara - 1) * acc)[j][r] + offset for one ciphertext, one word at a
+// time from device memory (the fused step, fused_step.cu): a = acc row
 // [k1, n], s = bara & (2N-1).
 __device__ __forceinline__ uint32_t rotated_minus_acc(
     const int32_t* __restrict__ poly, int n, int r, uint32_t s,
@@ -38,70 +74,207 @@ __device__ __forceinline__ uint32_t rotated_minus_acc(
   return rot - (uint32_t)poly[r] + offset;
 }
 
-// Steps 1-4 for one ciphertext row per block. Dig is the type the raw
-// digits are held in: int8_t for b <= 8, when they are also the operand of
-// the singleton leaves and are copied to lhs segments [0, M); int16_t for
-// b > 8, when they do not fit a byte, every leaf reads two-limb combos and
-// the raw segments of lhs are left unwritten (no term reads them).
-template <typename Dig>
-__global__ void __launch_bounds__(kThreads)
-rotate_decompose_kernel(const int32_t* __restrict__ acc,
-                        const int32_t* __restrict__ bara_step,
-                        int8_t* __restrict__ lhs, Params p,
-                        const int32_t* __restrict__ combos, int n_combos) {
-  extern __shared__ __align__(16) unsigned char dig_raw[];
-  Dig* dig = reinterpret_cast<Dig*>(dig_raw);  // m * pt raw digits
-  const int row = blockIdx.x;
-  const int n = p.n;
-  const uint32_t s = (uint32_t)bara_step[row] & (2u * (uint32_t)n - 1u);
-  const int32_t* a = acc + (size_t)row * p.k1 * n;
-  const uint32_t digit_mask = (1u << p.b) - 1u;
-  const int half = 1 << (p.b - 1);
+// Four words of the doubled polynomial [poly, -poly], from word 4q.
+__device__ __forceinline__ uint4 doubled4(const uint4* __restrict__ poly4,
+                                          uint32_t q, uint32_t n4) {
+  const bool neg = q >= n4;
+  uint4 v = poly4[neg ? q - n4 : q];
+  if (neg) v = make_uint4(0u - v.x, 0u - v.y, 0u - v.z, 0u - v.w);
+  return v;
+}
 
-  for (int idx = threadIdx.x; idx < p.k1 * n; idx += blockDim.x) {
-    const int j = idx / n;
-    const int r = idx - j * n;
-    const uint32_t shifted =
-        rotated_minus_acc(a + (size_t)j * n, n, r, s, (uint32_t)p.offset);
-    const int i = r / kT;
-    const int u = r - i * kT;
-    Dig* out = dig + (size_t)i * p.pt + (size_t)j * p.l * kT + u;
-    for (int il = 0; il < p.l; ++il) {
-      // The mask keeps only bits the shift brought down, so a logical
-      // shift gives the same digit as the reference's arithmetic one.
-      const uint32_t d = (shifted >> (32 - (il + 1) * p.b)) & digit_mask;
-      out[il * kT] = (Dig)((int)d - half);
-    }
+// ((X^s - 1) * poly)[4c .. 4c+3] + offset from the staged polynomial.
+__device__ __forceinline__ uint4 rotated_minus4(
+    const uint4* __restrict__ poly4, uint32_t n4, uint32_t s, uint32_t c,
+    uint32_t offset) {
+  const uint32_t src = (4u * c - s) & (8u * n4 - 1u);
+  const uint32_t q = src >> 2, o = src & 3u;
+  const uint4 lo = doubled4(poly4, q, n4);
+  uint4 rot = lo;
+  if (o != 0u) {
+    const uint4 hi = doubled4(poly4, (q + 1u) & (2u * n4 - 1u), n4);
+    if (o == 1u)
+      rot = make_uint4(lo.y, lo.z, lo.w, hi.x);
+    else if (o == 2u)
+      rot = make_uint4(lo.z, lo.w, hi.x, hi.y);
+    else
+      rot = make_uint4(lo.w, hi.x, hi.y, hi.z);
   }
+  const uint4 a = poly4[c];
+  return make_uint4(rot.x - a.x + offset, rot.y - a.y + offset,
+                    rot.z - a.z + offset, rot.w - a.w + offset);
+}
+
+// The signed digit at `shift` in each of the 4 words. The mask keeps only
+// bits the shift brought down, so a logical shift gives the same digit as
+// the reference's arithmetic one.
+__device__ __forceinline__ void cut4(const uint4& w, int shift,
+                                     uint32_t mask, int half, int (&d)[4]) {
+  d[0] = (int)((w.x >> shift) & mask) - half;
+  d[1] = (int)((w.y >> shift) & mask) - half;
+  d[2] = (int)((w.z >> shift) & mask) - half;
+  d[3] = (int)((w.w >> shift) & mask) - half;
+}
+
+// The low bytes of four ints as one little-endian word.
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+__device__ __forceinline__ void store4(int8_t* dst, uint32_t word) {
+  *reinterpret_cast<uint32_t*>(dst) = word;
+}
+
+// A warp's item: one (poly j, level il) from M = 8 blocks on, else one
+// poly j and all its levels. Measured on the H100 (PERF.md, PR 6): per-level
+// items were faster at M = 8 (more warps a row, fewer registers a lane) and
+// slower at M <= 4, where the rotation recomputed per level costs more
+// than the level's own work.
+__host__ __device__ constexpr bool per_level_items(int m) { return m >= 8; }
+
+// The front half: stage the block's row, then for every (j, il) of a warp's
+// items call back(row, j, il, lane, shifted), where shifted(i) gives the
+// lane's four words of block i.
+template <int M, typename Back>
+__device__ __forceinline__ void rotate_rows(const int32_t* __restrict__ acc,
+                                            const int32_t* __restrict__ bara,
+                                            const Params& p, Back back) {
+  extern __shared__ __align__(16) uint4 row_s[];
+  constexpr int n = M * kT, n4 = n / 4;
+  const int row = blockIdx.x;
+  const int row16 = p.k1 * n4;
+  const uint4* src = reinterpret_cast<const uint4*>(acc) + (size_t)row * row16;
+  for (int x = threadIdx.x; x < row16; x += blockDim.x) {
+    const uint32_t dst = (uint32_t)__cvta_generic_to_shared(row_s + x);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src + x)
+                 : "memory");
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  int8_t* dst_row = lhs + (size_t)row * p.lhs_stride;
-  if (sizeof(Dig) == 1) {
-    const int raw_words = p.m * p.pt / 4;
-    for (int x = threadIdx.x; x < raw_words; x += blockDim.x)
-      reinterpret_cast<int32_t*>(dst_row)[x] =
-          reinterpret_cast<const int32_t*>(dig)[x];
-  }
-
-  for (int c = 0; c < n_combos; ++c) {
-    const int dst = combos[4 * c + 0];
-    const uint32_t src_mask = (uint32_t)combos[4 * c + 1];
-    const int two_limb = combos[4 * c + 2];
-    const int hi_dst = combos[4 * c + 3];
-    for (int x = threadIdx.x; x < p.pt; x += blockDim.x) {
-      int v = 0;
-      for (int blk = 0; blk < p.m; ++blk)
-        if ((src_mask >> blk) & 1u) v += dig[blk * p.pt + x];
-      if (!two_limb) {
-        dst_row[(size_t)dst * p.pt + x] = (int8_t)v;
-      } else {
-        const int lo = ((v & 127) ^ 64) - 64;  // in [-64, 63]
-        const int hi = (v - lo) / 128;         // exact: v - lo is 128 * hi
-        dst_row[(size_t)dst * p.pt + x] = (int8_t)lo;
-        dst_row[(size_t)hi_dst * p.pt + x] = (int8_t)hi;
-      }
+  const int lane = threadIdx.x & 31;
+  const uint32_t s = (uint32_t)bara[row] & (2u * n - 1u);
+  const uint32_t offset = (uint32_t)p.offset;
+  if constexpr (per_level_items(M)) {
+    for (int item = threadIdx.x >> 5; item < p.k1 * p.l;
+         item += blockDim.x >> 5) {
+      const int j = item / p.l;
+      const uint4* poly4 = row_s + (size_t)j * n4;
+      back(row, j, item - j * p.l, lane, [&](int i) {
+        return rotated_minus4(poly4, n4, s, i * kCols + lane, offset);
+      });
+    }
+  } else {
+    for (int j = threadIdx.x >> 5; j < p.k1; j += blockDim.x >> 5) {
+      const uint4* poly4 = row_s + (size_t)j * n4;
+      uint4 sh[M];
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+        sh[i] = rotated_minus4(poly4, n4, s, i * kCols + lane, offset);
+      for (int il = 0; il < p.l; ++il)
+        back(row, j, il, lane, [&](int i) { return sh[i]; });
     }
   }
+}
+
+// Steps 1-4 of a step: the digit operand, per ciphertext lhs_rows segments
+// of P*T bytes, [seg][j][level][u]. Segments [0, M) are the raw digits for
+// b <= 8; for b > 8 the digits do not fit a byte, every leaf reads
+// two-limb combos, and the raw segments are left unwritten (no product
+// reads them). Each combo segment is the sum of its masked blocks, one
+// int8 limb (wrapped), or lo = ((v & 127) ^ 64) - 64 and hi = (v - lo) / 128.
+//
+// For b <= 8 a lane's digits travel two to a word: the biased digit
+// u = d + 2^(b-1), in [0, 2^b), in each 16-bit half. A combo's sum of up
+// to 16 such halves stays below 2^12, so one add serves two lanes without a
+// carry between them; the bias comes off, with 4096 added to keep each half
+// positive, before the bytes are cut out. For b > 8 (Wide) each lane is an
+// int.
+template <int M, bool Wide>
+__global__ void __launch_bounds__(kMaxRowWarps * 32)
+rotate_decompose_kernel(const int32_t* __restrict__ acc,
+                        const int32_t* __restrict__ bara_step,
+                        int8_t* __restrict__ lhs,
+                        const __grid_constant__ Params p) {
+  rotate_rows<M>(acc, bara_step, p, [&](int row, int j, int il, int lane,
+                                         auto shifted) {
+    const uint32_t mask = (1u << p.b) - 1u;
+    const int half = 1 << (p.b - 1);
+    const int shift = 32 - (il + 1) * p.b;
+    int8_t* dst = lhs + (size_t)row * p.lhs_stride +
+                  (size_t)(j * p.l + il) * kT + 4 * lane;
+    if constexpr (Wide) {
+      int d[M][4];
+#pragma unroll
+      for (int i = 0; i < M; ++i) cut4(shifted(i), shift, mask, half, d[i]);
+      for (int c = 0; c < p.n_combos; ++c) {
+        const uint32_t cw = p.combos[c];
+        int v[4] = {0, 0, 0, 0}, hi[4];
+#pragma unroll
+        for (int i = 0; i < M; ++i) {
+          if ((cw >> i) & 1u) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) v[e] += d[i][e];
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // the plan makes every combo two-limb
+          const int lo = ((v[e] & 127) ^ 64) - 64;  // in [-64, 63]
+          hi[e] = (v[e] - lo) >> 7;  // exact: v - lo is 128 * hi
+          v[e] = lo;
+        }
+        store4(dst + (size_t)((cw >> 17) & 127u) * p.pt,
+               pack4(v[0], v[1], v[2], v[3]));
+        store4(dst + (size_t)((cw >> 24) & 127u) * p.pt,
+               pack4(hi[0], hi[1], hi[2], hi[3]));
+      }
+    } else {
+      uint32_t e[M][2];  // biased digits of lanes (0, 1) and (2, 3)
+      // u - half, kept positive in each half: its low byte is the digit
+      const uint32_t raw_bias = (0x100u - (uint32_t)half) * 0x10001u;
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        const uint4 w = shifted(i);
+        e[i][0] = __byte_perm((w.x >> shift) & mask, (w.y >> shift) & mask,
+                              0x5410);
+        e[i][1] = __byte_perm((w.z >> shift) & mask, (w.w >> shift) & mask,
+                              0x5410);
+        store4(dst + (size_t)i * p.pt,
+               __byte_perm(e[i][0] + raw_bias, e[i][1] + raw_bias, 0x6420));
+      }
+      for (int c = 0; c < p.n_combos; ++c) {
+        const uint32_t cw = p.combos[c];
+        // v + 4096 in each half: v = sum of u - popc * half
+        const uint32_t bias =
+            (0x1000u - (uint32_t)__popc(cw & 0xFFFFu) * half) * 0x10001u;
+        uint32_t w0 = bias, w1 = bias;
+#pragma unroll
+        for (int i = 0; i < M; ++i) {
+          if ((cw >> i) & 1u) {
+            w0 += e[i][0];
+            w1 += e[i][1];
+          }
+        }
+        int8_t* out = dst + (size_t)((cw >> 17) & 127u) * p.pt;
+        if (!((cw >> 16) & 1u)) {
+          store4(out, __byte_perm(w0, w1, 0x6420));
+        } else {
+          // x = (v & 127) ^ 64, lo = x - 64; hi = (v + 4096 - x + 64) / 128
+          // - 32, exact; each half stays in [0, 2^16)
+          const uint32_t x0 = (w0 & 0x007F007Fu) ^ 0x00400040u;
+          const uint32_t x1 = (w1 & 0x007F007Fu) ^ 0x00400040u;
+          const uint32_t h0 = ((w0 - x0 + 0x00400040u) >> 7) & 0x007F007Fu;
+          const uint32_t h1 = ((w1 - x1 + 0x00400040u) >> 7) & 0x007F007Fu;
+          store4(out,
+                 __byte_perm(x0 + 0x00C000C0u, x1 + 0x00C000C0u, 0x6420));
+          store4(dst + (size_t)((cw >> 24) & 127u) * p.pt,
+                 __byte_perm(h0 + 0x00E000E0u, h1 + 0x00E000E0u, 0x6420));
+        }
+      }
+    }
+  });
 }
 
 // The dots launch of a step (dots_sm90.cuh): one block per (work item,
@@ -233,36 +406,52 @@ inline cudaError_t launch_expand(const int8_t* limbs_step,
   return cudaGetLastError();
 }
 
-// A row's raw digits past 48 KB of shared memory (8 parties: 73,728 bytes)
-// need the opt-in limit; every entry point calls this once before it
-// launches its steps.
-inline cudaError_t allow_digit_smem(const Params& p) {
-  const size_t bytes = (size_t)p.m * p.pt * (p.b > 8 ? 2 : 1);
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  if (p.b > 8)
-    return cudaFuncSetAttribute(rotate_decompose_kernel<int16_t>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)bytes);
-  return cudaFuncSetAttribute(rotate_decompose_kernel<int8_t>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+// The rotate/decompose launches' shape: one block per ciphertext row, one
+// warp per item (at most kMaxRowWarps), the row staged in shared memory.
+inline int row_threads(const Params& p) {
+  const int items = per_level_items(p.m) ? p.k1 * p.l : p.k1;
+  return 32 * (items < kMaxRowWarps ? items : kMaxRowWarps);
 }
+
+inline size_t row_smem(const Params& p) { return (size_t)p.k1 * p.n * 4; }
+
+// Launch kernel<M> for the step's M (1 to 16 blocks), with the opt-in to
+// more than 48 KB of staged rows where a row needs it.
+template <template <int> class Launch, typename... Args>
+inline cudaError_t launch_by_m(const Params& p, Args... args) {
+  switch (p.m) {
+    case 1: return Launch<1>::run(p, args...);
+    case 2: return Launch<2>::run(p, args...);
+    case 4: return Launch<4>::run(p, args...);
+    case 8: return Launch<8>::run(p, args...);
+    case 16: return Launch<16>::run(p, args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int M>
+struct RotateDecompose {
+  static cudaError_t run(const Params& p, const int32_t* acc,
+                         const int32_t* bara_step, int8_t* lhs,
+                         cudaStream_t st) {
+    auto kernel = p.b > 8 ? rotate_decompose_kernel<M, true>
+                          : rotate_decompose_kernel<M, false>;
+    const size_t smem = row_smem(p);
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<p.batch, row_threads(p), smem, st>>>(acc, bara_step, lhs, p);
+    return cudaGetLastError();
+  }
+};
 
 inline cudaError_t launch_rotate_decompose(const int32_t* acc,
                                            const int32_t* bara_step,
-                                           int8_t* lhs, const int32_t* combos,
-                                           int n_combos, const Params& p,
+                                           int8_t* lhs, const Params& p,
                                            cudaStream_t st) {
-  if (p.b > 8) {
-    rotate_decompose_kernel<int16_t>
-        <<<p.batch, kThreads, (size_t)p.m * p.pt * 2, st>>>(
-            acc, bara_step, lhs, p, combos, n_combos);
-  } else {
-    rotate_decompose_kernel<int8_t>
-        <<<p.batch, kThreads, (size_t)p.m * p.pt, st>>>(
-            acc, bara_step, lhs, p, combos, n_combos);
-  }
-  return cudaGetLastError();
+  return launch_by_m<RotateDecompose>(p, acc, bara_step, lhs, st);
 }
 
 // One CMUX step: the rotate/decompose/combos launch, then the dots launch
@@ -270,18 +459,21 @@ inline cudaError_t launch_rotate_decompose(const int32_t* acc,
 // the first launch error.
 inline cudaError_t launch_step(int32_t* acc, DotsLaunch& dots, int step,
                                bool multi_key, const int32_t* bara_step,
-                               int8_t* lhs, const int32_t* combos,
-                               int n_combos, const Params& p,
+                               int8_t* lhs, const Params& p,
                                cudaStream_t st) {
-  cudaError_t err =
-      launch_rotate_decompose(acc, bara_step, lhs, combos, n_combos, p, st);
+  cudaError_t err = launch_rotate_decompose(acc, bara_step, lhs, p, st);
   if (err != cudaSuccess) return err;
   return launch_dots(acc, dots, step, multi_key, st);
 }
 
-inline Params make_params(int batch, int k1, int n, int l, int b, int m,
-                          int lhs_rows, int offset) {
-  Params p;
+// The launches' parameters; combos (host memory, n_combos packed words, see
+// Params) are copied in. Returns cudaErrorInvalidValue for more than
+// kMaxCombos combos.
+inline cudaError_t make_params(Params& p, int batch, int k1, int n, int l,
+                               int b, int m, int lhs_rows, int offset,
+                               const int32_t* combos = nullptr,
+                               int n_combos = 0) {
+  if (n_combos < 0 || n_combos > kMaxCombos) return cudaErrorInvalidValue;
   p.batch = batch;
   p.k1 = k1;
   p.n = n;
@@ -292,7 +484,10 @@ inline Params make_params(int batch, int k1, int n, int l, int b, int m,
   p.lhs_stride = lhs_rows * p.pt;
   p.cols = k1 * 4 * kT;
   p.offset = offset;
-  return p;
+  p.n_combos = n_combos;
+  for (int c = 0; c < kMaxCombos; ++c)
+    p.combos[c] = c < n_combos ? (uint32_t)combos[c] : 0u;
+  return cudaSuccess;
 }
 
 }  // namespace

@@ -8,9 +8,12 @@
 // decomposition offset, cut l signed b-bit digits, and store them as S int8
 // limbs in lane order (block i, poly j, level, coeff): S = 1 for b <= 8;
 // for b >= 9 the digit is held as an int and split base 16,
-// lo = ((d & 15) ^ 8) - 8, hi = (d - lo) >> 4 (shifts 0 and 4). One block
-// per ciphertext, digits written straight to device memory as
-// int8[B, S, M*P*T] (the wrapper hands them on as [S, B, M*P*T]).
+// lo = ((d & 15) ^ 8) - 8, hi = (d - lo) >> 4 (shifts 0 and 4). The front
+// half is rotate_decompose_kernel's (cmux_kernels.cuh: a block per row, the
+// row read once into shared memory, 4-byte stores of full lines); the
+// digits go straight to device memory as int8[B, S, M*P*T] (the wrapper
+// hands them on as [S, B, M*P*T]). What bounds it: bytes, acc read once
+// and S*M*P*T bytes a row written once.
 //
 // The matmul: for output block o one int8 dot of the digits against the
 // contiguous window e[(M-1-o)*P*T : (2M-1-o)*P*T] of the permuted
@@ -31,42 +34,65 @@
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
+// Per ciphertext row S limbs of M*P*T digit bytes, lane order (block i,
+// poly j, level, coeff), from the front half the Karatsuba steps' kernel
+// shares (cmux_kernels.cuh:rotate_rows: one staged read of the row, a warp
+// per (poly, level), a lane per 4 coefficients of all M blocks, full-line
+// 4-byte stores).
+template <int M>
+__global__ void __launch_bounds__(kMaxRowWarps * 32)
 rotate_decompose_dense_kernel(const int32_t* __restrict__ acc,
                               const int32_t* __restrict__ bara_step,
-                              int8_t* __restrict__ digits, Params p,
+                              int8_t* __restrict__ digits,
+                              const __grid_constant__ Params p,
                               int s_limbs) {
-  const int row = blockIdx.x;
-  const int n = p.n;
-  const uint32_t s = (uint32_t)bara_step[row] & (2u * (uint32_t)n - 1u);
-  const int32_t* a = acc + (size_t)row * p.k1 * n;
-  const uint32_t digit_mask = (1u << p.b) - 1u;
-  const int half = 1 << (p.b - 1);
-  int8_t* dst_row = digits + (size_t)row * p.lhs_stride;
-  const size_t limb_stride = (size_t)p.m * p.pt;
-
-  for (int idx = threadIdx.x; idx < p.k1 * n; idx += blockDim.x) {
-    const int j = idx / n;
-    const int r = idx - j * n;
-    const uint32_t shifted =
-        rotated_minus_acc(a + (size_t)j * n, n, r, s, (uint32_t)p.offset);
-    const int i = r / kT;
-    const int u = r - i * kT;
-    int8_t* out = dst_row + (size_t)i * p.pt + (size_t)j * p.l * kT + u;
-    for (int il = 0; il < p.l; ++il) {
-      const int d =
-          (int)((shifted >> (32 - (il + 1) * p.b)) & digit_mask) - half;
+  rotate_rows<M>(acc, bara_step, p, [&](int row, int j, int il, int lane,
+                                         auto shifted) {
+    const uint32_t mask = (1u << p.b) - 1u;
+    const int half = 1 << (p.b - 1);
+    const int shift = 32 - (il + 1) * p.b;
+    const size_t limb_stride = (size_t)M * p.pt;
+    int8_t* dst = digits + (size_t)row * p.lhs_stride +
+                  (size_t)(j * p.l + il) * kT + 4 * lane;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      int d[4];
+      cut4(shifted(i), shift, mask, half, d);
       if (s_limbs == 1) {
-        out[il * kT] = (int8_t)d;
+        store4(dst + (size_t)i * p.pt, pack4(d[0], d[1], d[2], d[3]));
       } else {
-        const int lo = ((d & 15) ^ 8) - 8;  // in [-8, 7]
-        const int hi = (d - lo) >> 4;       // exact: d - lo is 16 * hi
-        out[il * kT] = (int8_t)lo;
-        out[limb_stride + il * kT] = (int8_t)hi;
+        int hi[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int lo = ((d[e] & 15) ^ 8) - 8;  // in [-8, 7]
+          hi[e] = (d[e] - lo) >> 4;              // exact: d - lo is 16 * hi
+          d[e] = lo;
+        }
+        store4(dst + (size_t)i * p.pt, pack4(d[0], d[1], d[2], d[3]));
+        store4(dst + limb_stride + (size_t)i * p.pt,
+               pack4(hi[0], hi[1], hi[2], hi[3]));
       }
     }
-  }
+  });
 }
+
+template <int M>
+struct RotateDecomposeDense {
+  static cudaError_t run(const Params& p, const int32_t* acc,
+                         const int32_t* bara_step, int8_t* digits,
+                         int s_limbs, cudaStream_t st) {
+    const size_t smem = row_smem(p);
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          rotate_decompose_dense_kernel<M>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    rotate_decompose_dense_kernel<M><<<p.batch, row_threads(p), smem, st>>>(
+        acc, bara_step, digits, p, s_limbs);
+    return cudaGetLastError();
+  }
+};
 
 }  // namespace
 
@@ -77,11 +103,10 @@ int tfhe_rotate_decompose(const int32_t* acc, const int32_t* bara_step,
                           int8_t* digits, int batch, int k1, int n, int l,
                           int b, int m, int s_limbs, int offset,
                           void* stream) {
-  const Params p = make_params(batch, k1, n, l, b, m, s_limbs * m, offset);
-  rotate_decompose_dense_kernel<<<batch, kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      acc, bara_step, digits, p, s_limbs);
-  return (int)cudaGetLastError();
+  Params p;
+  make_params(p, batch, k1, n, l, b, m, s_limbs * m, offset);
+  return (int)launch_by_m<RotateDecomposeDense>(
+      p, acc, bara_step, digits, s_limbs, static_cast<cudaStream_t>(stream));
 }
 
 // acc += recombine(digits (x) e_step), in place. digits int8[B, S, M*P*T],

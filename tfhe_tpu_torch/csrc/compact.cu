@@ -19,7 +19,8 @@
 //   2. the rotate/decompose/combos launch and the dots launch of
 //      cmux_kernels.cuh, reading that scratch as the step's key rows.
 // tfhe_expand_step, one step's expansion on its own, writes the reference
-// layout int8[R*P*T, K*4*T], byte-equal to that step of bake_karatsuba.
+// layout int8[R*P*T, K*4*T], byte-equal to that step of bake_karatsuba, or
+// the K-major one (the multi-key step and chunk entries' operands).
 //
 // Where the expanded operand lives. The TPU kernel keeps it in VMEM next
 // to a resident accumulator. An SM has 228 KB of shared memory and the
@@ -40,12 +41,13 @@
 extern "C" {
 
 // One step's compact limbs int8[4, P, K, 2N] -> int8[R*P*T, K*4*T], the
-// reference layout.
+// reference layout, or with kmajor != 0 int8[K, 4, T, R*P*T].
 int tfhe_expand_step(const int8_t* limbs_step, const int32_t* entry_masks,
                      int8_t* out, int total_rows, int p_rows, int k1, int n,
-                     void* stream) {
+                     int kmajor, void* stream) {
   return (int)launch_expand(limbs_step, entry_masks, out, total_rows, p_rows,
-                            k1, n, false, static_cast<cudaStream_t>(stream));
+                            k1, n, kmajor != 0,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // The whole rotation from the compact key: 3 launches per step on `stream`,
@@ -61,8 +63,9 @@ int tfhe_blind_rotate_compact(int32_t* acc, const int8_t* limbs,
                               int lhs_rows, int total_rows, int offset,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Params p = make_params(batch, k1, n, l, b, m, lhs_rows, offset);
-  cudaError_t err = allow_digit_smem(p);
+  Params p;
+  cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
+                                combos, n_combos);
   if (err != cudaSuccess) return (int)err;
   DotsLaunch dots;
   err = make_dots(dots, lhs, p.lhs_stride, scratch, total_rows * p.pt, k1, 1,
@@ -78,7 +81,7 @@ int tfhe_blind_rotate_compact(int32_t* acc, const int8_t* limbs,
                         total_rows, p_rows, k1, n, true, st);
     if (err != cudaSuccess) return (int)err;
     err = launch_step(acc, dots, 0, false, bara_t + (size_t)s * batch, lhs,
-                      combos, n_combos, p, st);
+                      p, st);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

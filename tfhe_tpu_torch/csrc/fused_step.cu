@@ -310,7 +310,8 @@ int tfhe_cmux_step_karatsuba(const int32_t* acc, const int8_t* key_step,
                              int n, int l, int b, int m, int lhs_rows,
                              int offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Params p = make_params(batch, k1, n, l, b, m, lhs_rows, offset);
+  Params p;
+  make_params(p, batch, k1, n, l, b, m, lhs_rows, offset);
   if (b > 8)
     return (int)launch_fused<int16_t>(acc, bara, key_step, seg_table, terms,
                                       term_start, out, p, st);

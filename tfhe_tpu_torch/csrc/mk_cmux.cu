@@ -27,9 +27,9 @@
 // blocks of column k it feeds, computed once. Single-limb digit sums, which
 // the TPU bodies add inline because Mosaic has no int8 vector add, are
 // combo segments here. The operand is read K-major, int8[4, T, R*NZ*l*T]:
-// the compact loop's expansion writes its scratch so; the step and chunk
-// entries get it relaid by their wrappers from the expansion's reference
-// layout.
+// the compact loop's expansion writes its scratch so, and the expansion
+// the step and chunk entries are handed (ops/mk_cmux.py:expand_sparse on the
+// card) is written so too.
 //
 // Where things live. The TPU kernels keep a batch tile's accumulator, or the
 // whole group's, in VMEM across a chunk or a party's loop. At B = 4096 with
@@ -67,8 +67,6 @@ cudaError_t make_mk_dots(DotsLaunch& dots, const Params& p, const int8_t* lhs,
                               targets, items, n_items, stages, p.batch, p.k1,
                               p.n, p.m, p.pt, nzn * lt);
   if (err != cudaSuccess) return err;
-  err = allow_digit_smem(p);
-  if (err != cudaSuccess) return err;
   return allow_dots_smem(dots);
 }
 
@@ -86,13 +84,15 @@ int tfhe_mk_cmux_step(int32_t* acc, const int8_t* e_step,
                       int l, int b, int m, int lhs_rows, int total_rows,
                       int nzn, int offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Params p = make_params(batch, k1, n, l, b, m, lhs_rows, offset);
-  DotsLaunch dots;
-  cudaError_t err = make_mk_dots(dots, p, lhs, e_step, 1, total_rows, nzn,
-                                 products, targets, items, n_items, stages);
+  Params p;
+  cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
+                                combos, n_combos);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_step(acc, dots, 0, true, bara, lhs, combos, n_combos, p,
-                          st);
+  DotsLaunch dots;
+  err = make_mk_dots(dots, p, lhs, e_step, 1, total_rows, nzn, products,
+                     targets, items, n_items, stages);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_step(acc, dots, 0, true, bara, lhs, p, st);
 }
 
 // A chunk of n_steps steps against e_chunk int8[n_steps, 4, T, R*NZ*l*T]
@@ -107,15 +107,17 @@ int tfhe_mk_blind_rotate_chunk(int32_t* acc, const int8_t* e_chunk,
                                int lhs_rows, int total_rows, int nzn,
                                int offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Params p = make_params(batch, k1, n, l, b, m, lhs_rows, offset);
+  Params p;
+  cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
+                                combos, n_combos);
+  if (err != cudaSuccess) return (int)err;
   DotsLaunch dots;
-  cudaError_t err = make_mk_dots(dots, p, lhs, e_chunk, n_steps, total_rows,
-                                 nzn, products, targets, items, n_items,
-                                 stages);
+  err = make_mk_dots(dots, p, lhs, e_chunk, n_steps, total_rows, nzn,
+                     products, targets, items, n_items, stages);
   if (err != cudaSuccess) return (int)err;
   for (int s = 0; s < n_steps; ++s) {
     err = launch_step(acc, dots, s, true, bara_t + (size_t)s * batch, lhs,
-                      combos, n_combos, p, st);
+                      p, st);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
@@ -136,10 +138,13 @@ int tfhe_mk_blind_rotate_compact(int32_t* acc, const int8_t* limbs,
                                  int lhs_rows, int total_rows, int nzn,
                                  int offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Params p = make_params(batch, k1, n, l, b, m, lhs_rows, offset);
+  Params p;
+  cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
+                                combos, n_combos);
+  if (err != cudaSuccess) return (int)err;
   DotsLaunch dots;
-  cudaError_t err = make_mk_dots(dots, p, lhs, scratch, 1, total_rows, nzn,
-                                 products, targets, items, n_items, stages);
+  err = make_mk_dots(dots, p, lhs, scratch, 1, total_rows, nzn, products,
+                     targets, items, n_items, stages);
   if (err != cudaSuccess) return (int)err;
   const size_t limbs_step = (size_t)4 * nzn * l * 2 * n;  // x 4000 steps > 2^31
   for (int s = 0; s < n_steps; ++s) {
@@ -147,7 +152,7 @@ int tfhe_mk_blind_rotate_compact(int32_t* acc, const int8_t* limbs,
                         total_rows, nzn * l, 1, n, true, st);
     if (err != cudaSuccess) return (int)err;
     err = launch_step(acc, dots, 0, true, bara_t + (size_t)s * batch, lhs,
-                      combos, n_combos, p, st);
+                      p, st);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

@@ -81,7 +81,7 @@ def lwe_phase(sample: LweSample, key: torch.Tensor) -> torch.Tensor:
 
 
 def lwe_noiseless_trivial(mu, n: int, batch_shape=(),
-                          device: torch.device | str = "cpu") -> LweSample:
+                          device: torch.device | str = "cuda") -> LweSample:
     """(0, mu): a trivial sample anyone can decrypt."""
     batch_shape = tuple(batch_shape)
     mu = torch.as_tensor(mu, dtype=torch.int32, device=device)

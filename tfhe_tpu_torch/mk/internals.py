@@ -93,7 +93,7 @@ def mk_lwe_phase(sample: MKLweSample, lwe_keys: torch.Tensor) -> torch.Tensor:
 
 
 def mk_lwe_noiseless_trivial(mu, n: int, parties: int, batch_shape=(),
-                             device: torch.device | str = "cpu"
+                             device: torch.device | str = "cuda"
                              ) -> MKLweSample:
     """(0, ..., 0, mu): a trivial sample anyone can decrypt."""
     batch_shape = tuple(batch_shape)

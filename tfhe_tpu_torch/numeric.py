@@ -15,6 +15,7 @@ import torch
 
 # 2^32 as a float; used only to scale unit-range floats into torus words.
 _TWO32 = float(2**32)
+_TWO31 = float(2**31)
 
 
 def encode_message(mu: int, message_space: int) -> int:
@@ -39,8 +40,14 @@ def decode_message(phase: torch.Tensor, message_space: int) -> torch.Tensor:
 
 
 def dtot32(d: torch.Tensor) -> torch.Tensor:
-    """float in [-0.5, 0.5) -> Torus32 = trunc(d * 2^32), in float32."""
-    return torch.trunc(d.to(torch.float32) * _TWO32).to(torch.int32)
+    """float in [-0.5, 0.5) -> Torus32 = trunc(d * 2^32), in float32. Out
+    of that domain the cast saturates as the reference's does: 2^31 - 1 at
+    or above 2^31, -2^31 below -2^31, 0 for NaN."""
+    x = torch.trunc(d.to(torch.float32) * _TWO32)
+    inside = (x >= -_TWO31) & (x < _TWO31)  # False for NaN
+    out = torch.where(inside, x, 0.0).to(torch.int32)
+    out = torch.where(x >= _TWO31, 2**31 - 1, out)
+    return torch.where(x < -_TWO31, -(2**31), out)
 
 
 def rand_uniform_bool(generator: torch.Generator, shape) -> torch.Tensor:

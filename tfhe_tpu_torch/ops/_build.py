@@ -99,12 +99,16 @@ def load() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, i32,  # acc key bara lhs combos n_combos
         *dots, *[i32] * 10, vp]  # sizes, stream
     lib.tfhe_blind_rotate.restype = i32
-    lib.tfhe_expand_step.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.tfhe_expand_step.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
+                                     vp]
     lib.tfhe_expand_step.restype = i32
     lib.tfhe_blind_rotate_compact.argtypes = [
         vp, vp, vp, vp, vp, vp,  # acc limbs bara lhs scratch entry_masks
         vp, i32, *dots, *[i32] * 10, vp]  # combos n_combos, sizes, stream
     lib.tfhe_blind_rotate_compact.restype = i32
+    lib.tfhe_rotate_decompose_rows.argtypes = [
+        vp, vp, vp, vp, *[i32] * 9, vp]  # acc bara lhs combos, sizes
+    lib.tfhe_rotate_decompose_rows.restype = i32
     lib.tfhe_rotate_decompose.argtypes = [
         vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp]
     lib.tfhe_rotate_decompose.restype = i32

@@ -18,6 +18,10 @@ blocks it feeds.
   in the reference layout.
 * `blind_rotate_baked`: CPU tensors take the plain version; CUDA tensors
   launch the kernel or raise.
+* `digit_rows_plain` / `digit_rows_kernel` / `digit_rows`: the first launch
+  of every rotation step on its own (rotate, decompose, Karatsuba digit
+  combos: the digit operand the dots read), for the single-key and the
+  multi-key steps alike.
 """
 
 from __future__ import annotations
@@ -34,9 +38,13 @@ from .karatsuba import KaratsubaPlan, karatsuba_delta
 
 # The kernel's fixed tile geometry (csrc/blind_rotate.cu).
 KERNEL_BLOCK = 128  # T: the Toeplitz block size the kernel takes
-# Raw digits of one row, M*P*T bytes (twice that for b > 8), live in shared
-# memory: up to the 227 KB a block may opt in to on Hopper.
-_MAX_DIGIT_SMEM = 227 * 1024
+# The rotate/decompose kernel stages one accumulator row (K*N words) in
+# shared memory: up to the 227 KB a block may opt in to on Hopper.
+MAX_ROW_SMEM = 227 * 1024
+# Its combo table travels in the launch's parameters (csrc/cmux_kernels.cuh:
+# kMaxCombos), one packed word per combo; segments are 7-bit fields.
+MAX_COMBOS = 64
+MAX_LHS_ROWS = 128
 
 
 def kernel_plan(plan: KaratsubaPlan, p: int, t: int,
@@ -192,11 +200,105 @@ def blind_rotate_plain(acc: torch.Tensor, e_all: torch.Tensor,
     return acc
 
 
+def digit_rows_plain(acc: torch.Tensor, bara: torch.Tensor, combos,
+                     lhs_rows: int, *, l: int, b: int, t: int,
+                     offset: int) -> torch.Tensor:
+    """The digit operand of one step, the function of the first launch of
+    every rotation kernel: acc int32[B, K, N], bara int32[B] (any integer;
+    reduced mod 2N), combos as `kernel_tables` gives them, `offset` the
+    decomposition offset. Returns int8[B, lhs_rows*P*T], per ciphertext
+    `lhs_rows` segments of P*T bytes, each laid out [j][level][u]:
+
+    * segments [0, M): the raw digits of block i of
+      (X^bara - 1) * acc + offset, cut into l signed b-bit digits; for
+      b > 8 they do not fit a byte, no product reads them, and they are
+      not part of the function: zero here, left unwritten by the kernel;
+    * each combo's segment: the sum of its masked blocks' digits, one int8
+      (wrapped mod 2^8), or for a two-limb combo lo = ((v & 127) ^ 64) - 64
+      at dst_seg and hi = (v - lo) / 128 at hi_seg.
+    """
+    bsz, k1, n = acc.shape
+    m, pt = n // t, k1 * l * t
+    rot = mul_by_monomial(acc, bara.to(torch.int64)[:, None])
+    shifted = (rot.to(torch.int64) - acc + offset) & 0xFFFFFFFF
+    dig = torch.stack([((shifted >> (32 - (il + 1) * b)) & ((1 << b) - 1))
+                       - (1 << (b - 1)) for il in range(l)], dim=2)
+    dig = dig.reshape(bsz, k1, l, m, t).permute(0, 3, 1, 2, 4) \
+        .reshape(bsz, m, pt)  # [B, block i, (j, level, u)]
+    lhs = torch.zeros((bsz, lhs_rows, pt), dtype=torch.int64,
+                      device=acc.device)
+    if b <= 8:
+        lhs[:, :m] = dig
+    for dst, mask, two_limb, hi in combos:
+        v = sum(dig[:, blk] for blk in range(m) if mask >> blk & 1)
+        if two_limb:
+            lo = ((v & 127) ^ 64) - 64
+            lhs[:, hi] = (v - lo) // 128
+            v = lo
+        lhs[:, dst] = v
+    lhs = ((lhs + 128) & 255) - 128  # the kernel's byte stores
+    return lhs.to(torch.int8).reshape(bsz, lhs_rows * pt)
+
+
+def digit_row_defined(b: int, m: int, pt: int) -> int:
+    """The first byte of a digit row that `digit_rows_plain` defines: 0, or
+    M*P*T for b > 8, whose raw segments are not part of the function."""
+    return 0 if b <= 8 else m * pt
+
+
+def pack_combos(combos) -> list:
+    """`kernel_tables`' combos as the kernel's parameter words:
+    src_block_mask | two_limb << 16 | dst_seg << 17 | hi_seg << 24 (hi_seg
+    0 for a single-limb combo, which has none)."""
+    return [mask | two << 16 | dst << 17 | (hi if two else 0) << 24
+            for dst, mask, two, hi in combos]
+
+
+def combo_words(combos, m: int, lhs_rows: int) -> list:
+    """`pack_combos`, checked against what the kernel takes: at most
+    MAX_COMBOS combos of 1-16 blocks, segments inside a row of at most
+    MAX_LHS_ROWS. Raises ValueError otherwise."""
+    words = pack_combos(combos)
+    ok = len(words) <= MAX_COMBOS and lhs_rows <= MAX_LHS_ROWS and all(
+        0 < (w & 0xFFFF) < 1 << m and ((w >> 17) & 127) < lhs_rows
+        and ((w >> 24) & 127) < lhs_rows for w in words)
+    if not ok:
+        raise ValueError(f"the combo table ({len(words)} combos, "
+                         f"{lhs_rows} segments, M={m}) does not fit the "
+                         "kernel or the row")
+    return words
+
+
+def digit_row_stores(k1: int, n: int, l: int, b: int, combos,
+                     t: int = KERNEL_BLOCK) -> list:
+    """The byte offsets, within one digit row, of every 4-byte store the
+    rotate/decompose kernel makes for that row (csrc/cmux_kernels.cuh), in
+    its lane order: a warp per poly j (from M = 8 on, per (j, level il))
+    of the row, lane u4 holding coefficients [4*u4, 4*u4 + 4) of every
+    block; per level it stores the raw word of each block (b <= 8), then
+    each combo's word(s)."""
+    m, pt = n // t, k1 * l * t
+    stores = []
+    for j in range(k1):
+        for il in range(l):
+            for u4 in range(t // 4):
+                lane = (j * l + il) * t + 4 * u4
+                if b <= 8:
+                    stores += [i * pt + lane for i in range(m)]
+                for dst, _, two_limb, hi in combos:
+                    stores += [seg * pt + lane
+                               for seg in ((dst, hi) if two_limb else (dst,))]
+    return stores
+
+
 @functools.lru_cache(maxsize=None)
-def device_tables(plan: KaratsubaPlan, p: int, t: int, device: str):
-    """The combo table on `device`: (combos, n_combos, lhs_rows)."""
+def combo_table(plan: KaratsubaPlan, p: int, t: int):
+    """The combo table as the C entries take it, a host int32 tensor of
+    `pack_combos` words: (table, n_combos, lhs_rows)."""
     combos, _, _, lhs_rows = kernel_tables(plan, p, t)
-    return dots.int_table(combos, device), len(combos), lhs_rows
+    words = combo_words(combos, plan.m, lhs_rows)
+    return (torch.tensor(words or [0], dtype=torch.int32), len(combos),
+            lhs_rows)
 
 
 @functools.lru_cache(maxsize=None)
@@ -215,11 +317,11 @@ def require(cond: bool, what: str, who: str):
 def check_rotation_geometry(who: str, k1: int, n: int, l: int, b: int,
                             t: int, plan: KaratsubaPlan):
     """The shapes the rotation kernels serve: T = 128, N a power of two with
-    at most 31 blocks, a gadget that fits 32-bit words and int16 digits, and
-    one row's raw digits (M*K*l*T bytes, twice that for b > 8) within the
-    shared memory a block can use. Every single-key preset and the
-    multi-key shapes up to 8 parties (K = 9, l = 8: 73,728 bytes) fit.
-    Returns (M, P*T)."""
+    at most 16 blocks, a gadget that fits 32-bit words and int16 digits, one
+    accumulator row (K*N words) within the shared memory a block can use,
+    and a plan of at most 64 combos and 128 digit segments. Every
+    single-key preset and the multi-key shapes up to 8 parties (K = 9,
+    N = 1024: 36,864 bytes a row) fit. Returns (M, P*T)."""
     def check(cond, what):
         require(cond, what, who)
 
@@ -230,17 +332,19 @@ def check_rotation_geometry(who: str, k1: int, n: int, l: int, b: int,
     pt = k1 * l * t
     check(n == m * t and n & (n - 1) == 0 and plan.m == m,
           f"plan m={plan.m} does not fit N={n} (a power of two)")
-    check(m <= 31, "at most 31 blocks per polynomial")
+    check(m <= 16, "at most 16 blocks per polynomial")
     try:  # the dots kernel's word sums (M x 8 KB) beside a 3-slot ring
         dots.ring_stages(m)
     except ValueError as err:
         raise ValueError(f"{who}: {err}") from None
-    # raw digits of one row in shared memory: bytes for b <= 8, else int16
-    digit_bytes = m * pt * (1 if b <= 8 else 2)
-    check(digit_bytes <= _MAX_DIGIT_SMEM,
-          f"one row's digits (K={k1}, l={l}, N={n}: {digit_bytes} bytes) "
-          f"exceed the {_MAX_DIGIT_SMEM} bytes of shared memory a block "
-          "can use")
+    row_bytes = k1 * n * 4  # one accumulator row, staged in shared memory
+    check(row_bytes <= MAX_ROW_SMEM,
+          f"one accumulator row (K={k1}, N={n}: {row_bytes} bytes) exceeds "
+          f"the {MAX_ROW_SMEM} bytes of shared memory a block can use")
+    try:
+        combo_table(plan, k1 * l, t)
+    except ValueError as err:
+        raise ValueError(f"{who}: {err}") from None
     return m, pt
 
 
@@ -276,6 +380,62 @@ def raise_on_error(who: str, lib, err: int):
                            f"({lib.tfhe_error_string(err).decode()})")
 
 
+def digit_rows_kernel(acc: torch.Tensor, bara: torch.Tensor, combos,
+                      lhs_rows: int, *, l: int, b: int, t: int,
+                      offset: int) -> torch.Tensor:
+    """`digit_rows_plain` through the CUDA kernel alone (C entry
+    tfhe_rotate_decompose_rows), the first launch of every rotation step.
+    For b > 8 the raw segments are left unwritten (`digit_row_defined`).
+    Launches on the current stream and does not synchronise. `.launches`
+    counts this kernel's launches, those the whole-rotation wrappers make
+    included."""
+    from . import _build
+
+    who = "digit_rows_kernel"
+    require(acc.is_cuda and bara.is_cuda and acc.device == bara.device,
+            "tensors must be on one CUDA device", who)
+    require(acc.dim() == 3 and acc.dtype == torch.int32
+            and acc.is_contiguous(), "acc must be a contiguous int32[B, K, N]",
+            who)
+    bsz, k1, n = acc.shape
+    require(tuple(bara.shape) == (bsz,) and bara.dtype == torch.int32
+            and bara.is_contiguous(), f"bara must be int32[{bsz}]", who)
+    m, pt = n // t, k1 * l * t
+    require(t == KERNEL_BLOCK and n == m * t and n & (n - 1) == 0
+            and 1 <= m <= 16,
+            f"T must be {KERNEL_BLOCK} and N a power of two of 1-16 blocks",
+            who)
+    require(1 <= b <= 15 and l * b <= 32 and k1 * n * 4 <= MAX_ROW_SMEM,
+            f"gadget l={l}, b={b} or row K={k1}, N={n} not served", who)
+    try:
+        words = combo_words(combos, m, lhs_rows)
+    except ValueError as err:
+        raise ValueError(f"{who}: {err}") from None
+    table = torch.tensor(words or [0], dtype=torch.int32)
+    lib = _build.load()
+    lhs = torch.empty((bsz, lhs_rows * pt), dtype=torch.int8,
+                      device=acc.device)
+    if bsz:
+        stream = torch.cuda.current_stream(acc.device).cuda_stream
+        err = lib.tfhe_rotate_decompose_rows(
+            acc.data_ptr(), bara.data_ptr(), lhs.data_ptr(), table.data_ptr(),
+            len(words), bsz, k1, n, l, b, m, lhs_rows, offset,
+            ctypes.c_void_p(stream))
+        raise_on_error(who, lib, err)
+        digit_rows_kernel.launches += 1
+    return lhs
+
+
+digit_rows_kernel.launches = 0
+
+
+def digit_rows(acc: torch.Tensor, bara: torch.Tensor, combos, lhs_rows: int,
+               *, l: int, b: int, t: int, offset: int) -> torch.Tensor:
+    """CPU tensors take the plain version, CUDA tensors the kernel."""
+    fn = digit_rows_kernel if acc.is_cuda else digit_rows_plain
+    return fn(acc, bara, combos, lhs_rows, l=l, b=b, t=t, offset=offset)
+
+
 def blind_rotate_kernel(acc: torch.Tensor, e_all: torch.Tensor,
                         bara_t: torch.Tensor, *, l: int, b: int, t: int,
                         plan: KaratsubaPlan, balanced: bool) -> torch.Tensor:
@@ -292,8 +452,7 @@ def blind_rotate_kernel(acc: torch.Tensor, e_all: torch.Tensor,
     dots.require_kmajor(who, e_all, (n_steps,), k1, t, plan.total_rows * pt)
 
     lib = _build.load()
-    combos, n_combos, lhs_rows = device_tables(plan, k1 * l, t,
-                                               str(acc.device))
+    combos, n_combos, lhs_rows = combo_table(plan, k1 * l, t)
     out = acc.clone()
     lhs = torch.empty((bsz, lhs_rows * pt), dtype=torch.int8,
                       device=acc.device)
@@ -307,6 +466,7 @@ def blind_rotate_kernel(acc: torch.Tensor, e_all: torch.Tensor,
             decomp_offset(l, b, balanced), ctypes.c_void_p(stream))
         raise_on_error(who, lib, err)
         blind_rotate_kernel.launches += 1
+        digit_rows_kernel.launches += n_steps  # its first launch of a step
     return out
 
 

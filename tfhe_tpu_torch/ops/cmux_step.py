@@ -32,7 +32,12 @@ import torch
 from ..polynomial import mul_by_monomial
 from ..tgsw import decomp_offset, decompose
 from . import dots
-from .blind_rotate import KERNEL_BLOCK, raise_on_error, require
+from .blind_rotate import (
+    KERNEL_BLOCK,
+    MAX_ROW_SMEM,
+    raise_on_error,
+    require,
+)
 from .conv import (
     block_toeplitz_matmul,
     i8_matmul,
@@ -153,8 +158,11 @@ def _dims(who: str, acc: torch.Tensor, l: int, b: int, t: int):
             f"gadget l={l}, b={b} does not fit 32-bit words and two int8 "
             "digit limbs", who)
     bsz, k1, n = acc.shape
-    require(n % t == 0 and n & (n - 1) == 0,
-            f"N={n} must be a power of two and a multiple of T", who)
+    require(n % t == 0 and n & (n - 1) == 0 and n // t <= 16,
+            f"N={n} must be a power of two of 1 to 16 blocks of T", who)
+    require(k1 * n * 4 <= MAX_ROW_SMEM,
+            f"one accumulator row (K={k1}, N={n}) exceeds the shared memory "
+            "a block can use", who)
     return bsz, k1, n, n // t, len(digit_limb_shifts(b))
 
 

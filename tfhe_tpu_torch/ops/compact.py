@@ -11,7 +11,7 @@ runs as in `ops/blind_rotate.py`.
   (`karatsuba.expand_karatsuba_step`, then `mux_rotate_karatsuba`). The CPU
   path and the oracle for the kernels.
 * `expand_step_kernel`: one step's expansion through the CUDA expansion
-  kernel (`csrc/compact.cu`), in the reference layout.
+  kernel (`csrc/compact.cu`), in the reference layout or K-major.
 * `blind_rotate_compact_kernel`: the whole rotation in one C call: per
   step the expansion kernel writes a scratch operand, K-major
   (`dots.to_kmajor`'s layout), that the step's rotate/decompose and dots
@@ -34,7 +34,8 @@ from ..tgsw import decomp_offset
 from . import dots
 from .blind_rotate import (
     check_rotation_args,
-    device_tables,
+    combo_table,
+    digit_rows_kernel,
     dots_tables,
     mux_rotate_karatsuba,
     raise_on_error,
@@ -73,9 +74,12 @@ def _check_limbs(who: str, limbs_step_shape, k1: int, n: int, t: int,
 
 
 def expand_step_kernel(limbs_step: torch.Tensor, *, t: int,
-                       plan: KaratsubaPlan) -> torch.Tensor:
+                       plan: KaratsubaPlan,
+                       kmajor: bool = False) -> torch.Tensor:
     """One step's expansion through the CUDA kernel; the same contract as
-    `expand_step_plain`. Launches on the current stream."""
+    `expand_step_plain`, or with `kmajor` its K-major layout
+    int8[K, 4, T, R*P*T] (`dots.to_kmajor` of it). Launches on the current
+    stream."""
     from . import _build
 
     who = "expand_step_kernel"
@@ -86,12 +90,13 @@ def expand_step_kernel(limbs_step: torch.Tensor, *, t: int,
     _check_limbs(who, limbs_step.shape, k1, n2 // 2, t, plan)
     lib = _build.load()
     masks = _device_entry_masks(plan, str(limbs_step.device))
-    out = torch.empty((plan.total_rows * p * t, k1 * 4 * t), dtype=torch.int8,
-                      device=limbs_step.device)
+    rows = plan.total_rows * p * t
+    shape = (k1, 4, t, rows) if kmajor else (rows, k1 * 4 * t)
+    out = torch.empty(shape, dtype=torch.int8, device=limbs_step.device)
     stream = torch.cuda.current_stream(limbs_step.device).cuda_stream
     err = lib.tfhe_expand_step(limbs_step.data_ptr(), masks.data_ptr(),
                                out.data_ptr(), plan.total_rows, p, k1,
-                               n2 // 2, ctypes.c_void_p(stream))
+                               n2 // 2, int(kmajor), ctypes.c_void_p(stream))
     raise_on_error(who, lib, err)
     expand_step_kernel.launches += 1
     return out
@@ -140,7 +145,7 @@ def blind_rotate_compact_kernel(acc: torch.Tensor, limbs: torch.Tensor,
 
     lib = _build.load()
     device = str(acc.device)
-    combos, n_combos, lhs_rows = device_tables(plan, k1 * l, t, device)
+    combos, n_combos, lhs_rows = combo_table(plan, k1 * l, t)
     masks = _device_entry_masks(plan, device)
     out = acc.clone()
     lhs = torch.empty((bsz, lhs_rows * pt), dtype=torch.int8,
@@ -159,6 +164,7 @@ def blind_rotate_compact_kernel(acc: torch.Tensor, limbs: torch.Tensor,
         raise_on_error(who, lib, err)
         blind_rotate_compact_kernel.launches += 1
         expand_step_kernel.launches += 1
+        digit_rows_kernel.launches += n_steps
     return out
 
 

@@ -25,12 +25,12 @@ accumulator column k.
 * `cmux_step_sparse_kernel`, `mk_blind_rotate_chunk_kernel`,
   `mk_blind_rotate_compact_kernel`: the CUDA wrappers (`csrc/mk_cmux.cu`);
   each counts the C calls that launched its kernels in `.launches`. The
-  step and chunk wrappers take the expansion's reference layout and relay
-  it K-major (`dots.to_kmajor`) for the kernel; given a K-major operand
-  they raise.
+  step and chunk wrappers take the operand K-major (`dots.to_kmajor`'s
+  layout, as `expand_sparse` writes it on the card) and raise on the
+  reference layout.
 * `expand_sparse`: one step's expansion; CUDA tensors go through the
   expansion kernel of `ops/compact.py` (a step's nonzero blocks are a
-  compact key step with P = NZ*l rows and K = 1).
+  compact key step with P = NZ*l rows and K = 1), K-major.
 * `cmux_step_sparse`, `mk_blind_rotate_chunk`, `mk_blind_rotate_compact`:
   CPU tensors take the plain version; CUDA tensors launch the kernel or
   raise.
@@ -48,7 +48,8 @@ from ..tgsw import decomp_offset, decompose
 from . import dots
 from .blind_rotate import (
     check_rotation_args,
-    device_tables,
+    combo_table,
+    digit_rows_kernel,
     kernel_plan,
     raise_on_error,
     require,
@@ -259,8 +260,7 @@ def _mk_call(who: str, acc, key, bara_t, l, b, t, plan, nz, balanced):
     nz = tuple(tuple(pair) for pair in nz)
     _check_nz(who, nz, k1)
     lib = _build.load()
-    device = str(acc.device)
-    combos, n_combos, lhs_rows = device_tables(plan, k1 * l, t, device)
+    combos, n_combos, lhs_rows = combo_table(plan, k1 * l, t)
     out = acc.clone()
     lhs = torch.empty((bsz, lhs_rows * pt), dtype=torch.int8,
                       device=acc.device)
@@ -277,26 +277,25 @@ def cmux_step_sparse_kernel(acc: torch.Tensor, e_step: torch.Tensor,
                             bara: torch.Tensor, *, l: int, b: int, t: int,
                             plan: KaratsubaPlan, nz,
                             balanced: bool) -> torch.Tensor:
-    """One multi-key CMUX step through the CUDA kernels; the same contract
-    as `cmux_step_sparse_plain` (e_step in the expansion's reference
-    layout, relaid K-major here). Takes T = 128 only. Launches on the
-    current stream and does not synchronise."""
+    """One multi-key CMUX step through the CUDA kernels; the contract of
+    `cmux_step_sparse_plain` with the operand K-major, int8[1, 4, T,
+    R*NZ*l*T], as `expand_sparse` gives it on the card (raises on the
+    reference layout). Takes T = 128 only. Launches on the current stream
+    and does not synchronise."""
     who = "cmux_step_sparse_kernel"
-    require(e_step.dim() == 2 and bara.dim() == 1,
-            "e_step must be [rows, 4T], bara [B]", who)
+    require(bara.dim() == 1, "bara must be [B]", who)
     lib, out, lhs, sz, tables, stream = _mk_call(
         who, acc, e_step[None], bara[None], l, b, t, plan, nz, balanced)
-    require(tuple(e_step.shape) == (e_step_rows(plan, l, t, nz), 4 * t),
-            f"operand shape {tuple(e_step.shape)} does not fit the plan", who)
+    dots.require_kmajor(who, e_step, (), 1, t, e_step_rows(plan, l, t, nz))
     if sz["bsz"]:
-        e_km = dots.to_kmajor(e_step, t)
         err = lib.tfhe_mk_cmux_step(
-            out.data_ptr(), e_km.data_ptr(), bara.data_ptr(),
+            out.data_ptr(), e_step.data_ptr(), bara.data_ptr(),
             lhs.data_ptr(), *tables, sz["bsz"], sz["k1"], sz["n"], l, b,
             sz["m"], sz["lhs_rows"], plan.total_rows, sz["nzn"],
             sz["offset"], stream)
         raise_on_error(who, lib, err)
         cmux_step_sparse_kernel.launches += 1
+        digit_rows_kernel.launches += 1
     return out
 
 
@@ -307,26 +306,25 @@ def mk_blind_rotate_chunk_kernel(acc: torch.Tensor, e_chunk: torch.Tensor,
                                  bara_t: torch.Tensor, *, l: int, b: int,
                                  t: int, plan: KaratsubaPlan, nz,
                                  balanced: bool) -> torch.Tensor:
-    """A chunk of steps in one C call; the same contract as
-    `mk_blind_rotate_chunk_plain` (e_chunk in the expansion's reference
-    layout, relaid K-major here)."""
+    """A chunk of steps in one C call; the contract of
+    `mk_blind_rotate_chunk_plain` with the operands K-major, int8[S, 1, 4,
+    T, R*NZ*l*T] (`expand_sparse`'s steps on the card, stacked; raises on
+    the reference layout)."""
     who = "mk_blind_rotate_chunk_kernel"
     lib, out, lhs, sz, tables, stream = _mk_call(
         who, acc, e_chunk, bara_t, l, b, t, plan, nz, balanced)
     n_steps = e_chunk.shape[0]
-    require(tuple(e_chunk.shape) == (n_steps, e_step_rows(plan, l, t, nz),
-                                     4 * t),
-            f"operand shape {tuple(e_chunk.shape)} does not fit the plan",
-            who)
+    dots.require_kmajor(who, e_chunk, (n_steps,), 1, t,
+                        e_step_rows(plan, l, t, nz))
     if n_steps and sz["bsz"]:
-        e_km = dots.to_kmajor(e_chunk, t)
         err = lib.tfhe_mk_blind_rotate_chunk(
-            out.data_ptr(), e_km.data_ptr(), bara_t.data_ptr(),
+            out.data_ptr(), e_chunk.data_ptr(), bara_t.data_ptr(),
             lhs.data_ptr(), *tables, sz["bsz"], sz["k1"], sz["n"], l, b,
             sz["m"], n_steps, sz["lhs_rows"], plan.total_rows, sz["nzn"],
             sz["offset"], stream)
         raise_on_error(who, lib, err)
         mk_blind_rotate_chunk_kernel.launches += 1
+        digit_rows_kernel.launches += n_steps
     return out
 
 
@@ -359,6 +357,7 @@ def mk_blind_rotate_compact_kernel(acc: torch.Tensor, limbs: torch.Tensor,
         raise_on_error(who, lib, err)
         mk_blind_rotate_compact_kernel.launches += 1
         expand_step_kernel.launches += 1  # the loop runs that kernel too
+        digit_rows_kernel.launches += n_steps
     return out
 
 
@@ -371,8 +370,10 @@ mk_blind_rotate_compact_kernel.launches = 0
 def expand_sparse(limbs_step: torch.Tensor, *, t: int, plan: KaratsubaPlan,
                   nz, l: int, preselected: bool) -> torch.Tensor:
     """One step's sparse expansion. CPU tensors take
-    `expand_karatsuba_sparse`; CUDA tensors the expansion kernel, on the
-    selected blocks viewed as a compact step of NZ*l rows and one column."""
+    `expand_karatsuba_sparse` (the reference layout int8[R*NZ*l*T, 4*T]);
+    CUDA tensors the expansion kernel, on the selected blocks viewed as a
+    compact step of NZ*l rows and one column, written K-major,
+    int8[1, 4, T, R*NZ*l*T]: the layout the step and chunk kernels read."""
     if not limbs_step.is_cuda:
         return expand_karatsuba_sparse(limbs_step, t, plan, nz, l,
                                        preselected)
@@ -382,7 +383,7 @@ def expand_sparse(limbs_step: torch.Tensor, *, t: int, plan: KaratsubaPlan,
             "rows", "expand_sparse")
     return expand_step_kernel(
         sel.contiguous().reshape(4, len(nz) * l, 1, sel.shape[-1]), t=t,
-        plan=plan)
+        plan=plan, kmajor=True)
 
 
 def cmux_step_sparse(acc, e_step, bara, **kw) -> torch.Tensor:
