@@ -21,20 +21,23 @@ back):
    N = 1024 at depth 2, the plans of 128_pbs (K = 3, N = 512) and
    128_radix_reliable (l = 4, b = 6) with B = 70, and the 80-bit shape with
    b = 10); the expansion
-   kernel against `expand_karatsuba_step` and against that step of
-   `bake_karatsuba` (128_fast, 128_fast8, N = 1024 l = 4 b = 6 depth 2);
+   kernel in both layouts against `expand_karatsuba_step` and against that
+   step of `bake_karatsuba` (128_fast, 128_fast8, N = 1024 l = 4 b = 6
+   depth 2);
    the compact rotation (128_fast8 with B = 256 and 300, 128_fast at depth
    1, N = 1024 at depth 2, the plan of 128_radix_reliable with B = 70); the
    dense step's two kernels and its rotation
    (128_fast at depth 0 with B = 256 and 300, 128_fast8's M = 1, the
    80-bit shape with two digit limbs); the three multi-key kernels (one
    sparse step, a chunk of steps, a party's loop from its compact limbs)
-   and the sparse expansion at N = 1024, depth 2 with the plans of 2 parties
-   (both parties, l = 5 b = 6 and l = 4 b = 7), 4 parties and 8 parties
-   (sparse-stored, party 5, triangular and full), B = 70; the fused
-   Karatsuba step against its plain version and against the whole-rotation
-   kernel at one step and at eight, B = 70, at the plans of 128_fast,
-   128_radix, 128_radix_reliable, 128_pbs and the 80-bit preset. The
+   and the sparse expansion (K-major and the reference layout) at N = 1024,
+   depth 2 with the plans of 2 parties (both parties, l = 5 b = 6 and
+   l = 4 b = 7), 4 parties and 8 parties (sparse-stored, party 5,
+   triangular and full), B = 70; the fused Karatsuba step, handed the
+   K-major step, against its plain version and against the whole-rotation
+   kernel at one step and at eight, B = 70 (a ragged second batch tile),
+   at the plans of 128_fast, 128_radix, 128_radix_reliable, 128_pbs and the
+   80-bit preset. The
    whole-rotation and dense kernels read their key K-major
    (`ops/dots.py:to_kmajor`), the plain versions the reference layout of the
    same bytes; the multi-key operands are K-major on the card, relaid with
@@ -44,7 +47,10 @@ back):
    the int8 operations executed (from the product tables they read) and
    useful (from the plan), and a cuBLAS yardstick: the summed time of
    `torch._int_mm` over the step's distinct products at the same shapes
-   (the products only, not the function; no path of the port calls it).
+   (the products only, not the function; no path of the port calls it);
+   the expansion K-major, the layout the compact and multi-key loops run,
+   at 128_fast8, 128_fast depth 1, the 2-party lownoise parties 0 and 1
+   and 128_radix_reliable, each beside its byte bound.
 4. Main path, baked: `make_key_pair(tfhe_parameters_128_fast)` on the card,
    `encrypt` of 4096 bits, 5 chained `gate_nand` layers, `decrypt`;
    requires 4096/4096 correct and one kernel launch per layer, and the
@@ -80,10 +86,11 @@ back):
    (4096/4096 equal to f(f(m))), one `programmable_bootstrap_many` call
    with q = 2; then the fused-step entry point driven on its own: the
    rotation of those ciphertexts and 6 more (4102: a ragged last tile) step
-   by step through `cmux_step_karatsuba`, each step's key handed to it in
-   the reference layout it reads (`from_kmajor` of that step alone, never a
-   second copy of the key, and outside the CUDA events that time the step
-   calls), equal to the whole-rotation kernel's and to the plain steps'.
+   by step through `cmux_step_karatsuba`, each step's K-major key slice
+   handed to it as the card holds it, equal to the whole-rotation kernel's
+   (whose time per step on the same key and rows is printed beside) and to
+   the plain steps' (each of those handed `from_kmajor` of its step alone,
+   outside the CUDA events that time the step calls).
 11. The radix main path: `tfhe_parameters_128_radix`, baked key, 4096 8-bit
    words, `radix_add` once to warm up and once timed, chained; wrong words
    counted (the preset's model failure is 7.9e-5 per word; more than 4 of
@@ -306,7 +313,8 @@ def phase3(gen, card) -> Kernels:
                    blind_rotate_kernel(acc, to_kmajor(key), bara_t, **kw),
                    blind_rotate_plain(acc, key, bara_t, **kw))
 
-    # the expansion kernel (row 6), against the plain version and the bake
+    # the expansion kernel (row 6), in both layouts, against the plain
+    # version and the bake
     for name, *dims in [("128_fast", 5, 256, 2, 8, 1),
                         ("128_fast8", 9, 128, 2, 8, 0),
                         ("N1024_l4_b6_depth2", 2, 1024, 4, 6, 2)]:
@@ -314,11 +322,13 @@ def phase3(gen, card) -> Kernels:
         kw = dict(t=T, plan=kw["plan"])
         got = compact.expand_step_kernel(limbs[1], **kw)
         what = "{} K={} N={} l={} b={} depth={}".format(name, *dims)
-        ks.compare("expand_karatsuba_step", what, got,
-                   compact.expand_step_plain(limbs[1], **kw))
+        want = compact.expand_step_plain(limbs[1], **kw)
+        ks.compare("expand_karatsuba_step", what, got, want)
         ks.compare("expand_karatsuba_step", what + " (bake_karatsuba)", got,
                    bake_karatsuba(limbs, T, kw["plan"])[1])
-
+        ks.compare("expand_karatsuba_step", what + " (K-major)",
+                   compact.expand_step_kernel(limbs[1], kmajor=True, **kw),
+                   to_kmajor(want))
     # the compact rotation (row 6)
     for name, *dims in [("128_fast8", 9, 128, 2, 8, 0, 6, 256),
                         ("128_fast8", 9, 128, 2, 8, 0, 6, 300),
@@ -380,14 +390,8 @@ def phase3(gen, card) -> Kernels:
              dots_ops(dots_tables(kw["plan"], 9, 2, T), BATCH, cols,
                       dots / steps, steps))
 
-    ekw = dict(t=T, plan=kw["plan"])
-    out_bytes = kw["plan"].total_rows * pt * cols
-    # per output byte about 3 integer operations (select, split, store)
-    ks.timed("expand_karatsuba_step", "128_fast8, one step",
-             lambda: compact.expand_step_kernel(limbs[0], **ekw),
-             lambda: compact.expand_step_plain(limbs[0], **ekw),
-             bound_ms(nbytes(limbs[0]) + out_bytes, 3.0 * out_bytes,
-                      PEAK_ALU_OPS_PER_S), card)
+    del acc, limbs, bara_t
+    phase3_expand(ks, gen, card)
 
     acc, key, bara_t, kw = random_case(gen, 5, 256, 2, 8, 0, steps, BATCH,
                                        form="dense")
@@ -418,6 +422,65 @@ def phase3(gen, card) -> Kernels:
     phase3_mk(ks, gen, card)
     phase3_fused(ks, gen, card)
     return ks
+
+
+# The expansion's shapes on the paths (name: total_rows, P, K, N, plan M,
+# depth, b): each compact step of 128_fast8 and 128_fast at depth 1, a
+# 2-party lownoise party's loop (party 0: K = 2, NZ = 4; party 1: K = 3,
+# NZ = 7; l = 5, one column) and 128_radix_reliable's compact step.
+def expand_shapes():
+    from tfhe_tpu_torch.mk.internals import active_plan
+    from tfhe_tpu_torch.ops.karatsuba import karatsuba_plan
+
+    def mk(party):
+        nz = active_plan(party, 2, True)[1]
+        return (len(nz) * 5, 1, MK_N, karatsuba_plan(MK_N // T, 2, 6))
+
+    shapes = {
+        "128_fast8": (9 * 2, 9, 128, karatsuba_plan(1, 0, 8)),
+        "128_fast_depth1": (5 * 2, 5, 256, karatsuba_plan(2, 1, 8)),
+        "MK_2party_party0": mk(0),
+        "MK_2party_party1": mk(1),
+        "128_radix_reliable": (2 * 4, 2, 1024, karatsuba_plan(8, 2, 6)),
+    }
+    return shapes
+
+
+def expand_case(gen, name):
+    """Random limbs of one step at an expansion shape, the plan, and the
+    least time of one expansion: its limbs read once, its output written
+    once; per output byte about 3 integer operations (select, split,
+    store)."""
+    p_rows, k1, n, plan = expand_shapes()[name]
+    limbs = rand_i8(gen, (4, p_rows, k1, 2 * n))
+    out_bytes = plan.total_rows * p_rows * T * k1 * 4 * T
+    return limbs, plan, bound_ms(nbytes(limbs) + out_bytes, 3.0 * out_bytes,
+                                 PEAK_ALU_OPS_PER_S)
+
+
+def phase3_expand(ks, gen, card):
+    """The expansion kernel timed K-major, the layout the compact and
+    multi-key loops run, at each path's shape beside its byte bound; the
+    record's own kernel and plain times are 128_fast8's."""
+    from tfhe_tpu_torch.ops import compact
+
+    ent = ks.entries["expand_karatsuba_step"]
+    ent["shapes"] = {}
+    for name in expand_shapes():
+        limbs, plan, (bound, by) = expand_case(gen, name)
+        kw = dict(t=T, plan=plan)
+        ms = cuda_ms(lambda: compact.expand_step_kernel(limbs, kmajor=True,
+                                                        **kw), reps=20)
+        ent["shapes"][name] = {"ms": ms, "bound_ms": bound, "bound_by": by}
+        print(f"[3 timing] expand_karatsuba_step {name} K-major: kernel "
+              f"{ms:.4f} ms, bound {bound:.4f} ms by {by} "
+              f"({100 * bound / ms:.1f}% of it) | {card}", flush=True)
+        if name == "128_fast8":
+            ks.timed("expand_karatsuba_step", "128_fast8, one step, K-major",
+                     lambda: compact.expand_step_kernel(limbs, kmajor=True,
+                                                        **kw),
+                     lambda: compact.expand_step_plain(limbs, **kw),
+                     (bound, by), card)
 
 
 # The digit-row shapes (name, K, N, l, b, depth, balanced): the presets'
@@ -520,9 +583,14 @@ def phase3_rows(ks, gen, card):
 
 
 def phase3_fused(ks, gen, card):
-    """The fused Karatsuba step (one launch) against its plain version and
-    against the whole-rotation kernel, then its time at 128_fast."""
-    from tfhe_tpu_torch.ops.blind_rotate import blind_rotate_kernel
+    """The fused Karatsuba step (one launch, the K-major key step) against
+    its plain version (the reference-layout step) and against the
+    whole-rotation kernel, then its time at 128_fast, B = 4096, with the
+    `torch._int_mm` yardstick over its products."""
+    from tfhe_tpu_torch.ops.blind_rotate import (
+        blind_rotate_kernel,
+        dots_tables,
+    )
     from tfhe_tpu_torch.ops.dots import to_kmajor
     from tfhe_tpu_torch.ops.fused_step import (
         cmux_step_karatsuba_kernel,
@@ -538,32 +606,41 @@ def phase3_fused(ks, gen, card):
         return acc
 
     steps = TIMED_STEPS
-    for preset, *dims in [("128_fast", 5, 256, 2, 8, 1),
-                          ("128_radix", 2, 1024, 3, 7, 2),
-                          ("128_radix_reliable", 2, 1024, 4, 6, 2),
-                          ("128_pbs", 3, 512, 3, 7, 2),
-                          ("80bit_b10", 2, 1024, 2, 10, 2)]:
+    for preset, *dims in FUSED_PLANS:
         acc, key, bara_t, kw = random_case(gen, *dims, steps, 70)
+        key_km = to_kmajor(key)
         what = "{} K={} N={} l={} b={} depth={} B=70".format(preset, *dims)
-        got = cmux_step_karatsuba_kernel(acc, key[1], bara_t[1], **kw)
+        got = cmux_step_karatsuba_kernel(acc, key_km[1], bara_t[1], **kw)
         ks.compare(name, what + " (plain step)", got,
                    cmux_step_karatsuba_plain(acc, key[1], bara_t[1], **kw))
-        key_km = to_kmajor(key)
         ks.compare(name, what + " (blind_rotate_kernel, one step)", got,
                    blind_rotate_kernel(acc, key_km[1:2], bara_t[1:2], **kw))
         ks.compare(name, what + f" ({steps} steps in a row)",
-                   chain(cmux_step_karatsuba_kernel, acc, key, bara_t, kw),
+                   chain(cmux_step_karatsuba_kernel, acc, key_km, bara_t, kw),
                    blind_rotate_kernel(acc, key_km, bara_t, **kw))
 
     acc, key, bara_t, kw = random_case(gen, 5, 256, 2, 8, 1, steps, BATCH)
+    key_km = to_kmajor(key)
     # every step reads acc and writes a new one; the key and bara once
     io = steps * nbytes(acc, acc) + nbytes(key, bara_t)
-    dots = 2.0 * kw["plan"].macs_superblocks * BATCH * key.shape[2] \
-        * (5 * 2 * T) * steps
+    cols, pt = key.shape[2], 5 * 2 * T
+    dots = 2.0 * kw["plan"].macs_superblocks * BATCH * cols * pt * steps
     ks.timed(name, f"128_fast B={BATCH}, {steps} steps (one launch each)",
-             lambda: chain(cmux_step_karatsuba_kernel, acc, key, bara_t, kw),
+             lambda: chain(cmux_step_karatsuba_kernel, acc, key_km, bara_t,
+                           kw),
              lambda: chain(cmux_step_karatsuba_plain, acc, key, bara_t, kw),
-             bound_ms(io, dots, PEAK_INT8_OPS_PER_S), card)
+             bound_ms(io, dots, PEAK_INT8_OPS_PER_S), card,
+             dots_ops(dots_tables(kw["plan"], 5, 2, T), BATCH, cols,
+                      dots / steps, steps))
+
+
+# The fused step's plans (name, K, N, l, b, depth): 128_fast, 128_radix,
+# 128_radix_reliable, 128_pbs and the 80-bit preset (b = 10).
+FUSED_PLANS = [("128_fast", 5, 256, 2, 8, 1),
+               ("128_radix", 2, 1024, 3, 7, 2),
+               ("128_radix_reliable", 2, 1024, 4, 6, 2),
+               ("128_pbs", 3, 512, 3, 7, 2),
+               ("80bit_b10", 2, 1024, 2, 10, 2)]
 
 
 MK_SRC = "tfhe_tpu/ops/pallas_cmux.py"
@@ -596,7 +673,7 @@ def mk_case(gen, parties, party, l, b, n_steps, batch, progressive=True,
 def phase3_mk(ks, gen, card):
     """The three multi-key kernels and the sparse expansion against their
     plain versions, then their times at the 2-party lownoise shape."""
-    from tfhe_tpu_torch.ops import mk_cmux
+    from tfhe_tpu_torch.ops import compact, mk_cmux
     from tfhe_tpu_torch.ops.dots import from_kmajor
     from tfhe_tpu_torch.ops.karatsuba import expand_karatsuba_sparse
 
@@ -633,6 +710,13 @@ def phase3_mk(ks, gen, card):
             expand_karatsuba_sparse(st, t, plan, nz, l, True))
         ks.compare("expand_karatsuba_step", what + " (sparse expansion)",
                    from_kmajor(e_chunk), e_ref)
+        ks.compare("expand_karatsuba_step",
+                   what + " (sparse expansion, reference layout)",
+                   expand_all(limbs, kw, lambda st, t, plan, nz, l:
+                              compact.expand_step_kernel(
+                                  st.contiguous().reshape(
+                                      4, len(nz) * l, 1, st.shape[-1]),
+                                  t=t, plan=plan)), e_ref)
         ks.compare("cmux_step_sparse", what,
                    mk_cmux.cmux_step_sparse_kernel(acc, e_chunk[1], bara_t[1],
                                                    **kw),
@@ -772,17 +856,18 @@ def profile_layer(tag, what, fn, wall_ms, card):
     return out
 
 
-def plain_steps(step_fn, acc, key_km, bara_t, kw):
+def step_by_step(step_fn, acc, key_km, bara_t, kw, relay=True):
     """`step_fn(acc, key_step, bara, **kw)`, one CMUX step, over every step
-    of a K-major key, each step handed over in the reference layout: the
-    bytes of that step alone, never a second copy of the key. Returns the
-    accumulator and the summed device ms of the step calls alone, each
-    step's relayout outside the CUDA events that time it."""
+    of a K-major key; with `relay` each step is handed over in the
+    reference layout (the plain versions): the bytes of that step alone,
+    never a second copy of the key. Returns the accumulator and the summed
+    device ms of the step calls alone, each step's relayout outside the CUDA
+    events that time it."""
     from tfhe_tpu_torch.ops.dots import from_kmajor
 
     spans = []
     for s in range(key_km.shape[0]):
-        step = from_kmajor(key_km[s])
+        step = from_kmajor(key_km[s]) if relay else key_km[s]
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0.record()
         acc = step_fn(acc, step, bara_t[s], **kw)
@@ -847,7 +932,7 @@ def phase4_baked(tp, ks, dev, card):
     kw = dict(l=bk.decomp_length, b=bk.log2_base, t=bk.block, plan=bk.plan,
               balanced=bk.balanced)
     got_rot = blind_rotate_kernel(acc0, bk.baked, bara_t, **kw)
-    want_rot, _ = plain_steps(
+    want_rot, _ = step_by_step(
         lambda a, e, br, **k: blind_rotate_plain(a, e[None], br[None], **k),
         acc0, bk.baked, bara_t, kw)
     torch.cuda.synchronize()
@@ -1332,9 +1417,10 @@ def phase10_pbs(tp, ks, dev, card):
           flush=True)
 
     # The fused step through its own entry point: the rotation of these
-    # ciphertexts and 6 more (a ragged last tile past two waves of blocks),
-    # one launch per step on the real key, held against the whole-rotation
-    # kernel and against the plain step.
+    # ciphertexts and 6 more (a ragged last batch tile), one launch per
+    # step on the real key, each step handed over as the card holds it
+    # (K-major), held against the whole-rotation kernel (timed on the same
+    # key and rows) and against the plain steps.
     rows = torch.arange(BATCH + 6, device=dev) % BATCH
     n_rows = rows.numel()
     w = params.N // space
@@ -1347,10 +1433,12 @@ def phase10_pbs(tp, ks, dev, card):
     kw = dict(l=bk.decomp_length, b=bk.log2_base, t=bk.block, plan=bk.plan,
               balanced=bk.balanced)
     want = blind_rotate_kernel(acc0, bk.baked, bara_t, **kw)
+    rotation_ms = cuda_ms(lambda: blind_rotate_kernel(acc0, bk.baked, bara_t,
+                                                      **kw), reps=2)
     wrappers = reset_counts()
     torch.cuda.synchronize()
-    acc, fused_ms = plain_steps(cmux_step_karatsuba, acc0, bk.baked, bara_t,
-                                kw)
+    acc, fused_ms = step_by_step(cmux_step_karatsuba, acc0, bk.baked, bara_t,
+                                 kw, relay=False)
     counts = {k: v for k, v in read_counts(wrappers).items() if v}
     check(counts == {"cmux_step_karatsuba": bk.n},
           f"fused-step launches {counts}")
@@ -1358,17 +1446,21 @@ def phase10_pbs(tp, ks, dev, card):
         counts["cmux_step_karatsuba"]
     check(torch.equal(acc, want),
           "fused steps != whole-rotation kernel on the real 128_pbs key")
-    plain, plain_ms = plain_steps(cmux_step_karatsuba_plain, acc0, bk.baked,
-                                  bara_t, kw)
+    plain, plain_ms = step_by_step(cmux_step_karatsuba_plain, acc0, bk.baked,
+                                   bara_t, kw)
     check(torch.equal(acc, plain),
           "fused steps != plain steps on the real 128_pbs key")
     print(f"[10 fused step] cmux_step_karatsuba x {bk.n} steps on {n_rows} "
-          f"real ciphertexts: {fused_ms:.3f} ms of step calls, "
-          f"{fused_ms / bk.n:.3f} ms per step (each step's key relaid to the "
-          f"reference layout before its timed span, outside it) | equal to "
-          f"blind_rotate_kernel and to the plain steps ({plain_ms:.3f} ms, "
-          f"{plain_ms / bk.n:.3f} ms per step) | launches {counts} | {card}",
-          flush=True)
+          f"real ciphertexts, each step's K-major key slice as the card "
+          f"holds it: {fused_ms:.3f} ms of step calls, "
+          f"{fused_ms / bk.n:.4f} ms per step, against "
+          f"blind_rotate_kernel's {rotation_ms / bk.n:.4f} ms per step on "
+          f"the same key and rows ({rotation_ms:.3f} ms a rotation; "
+          f"x{fused_ms / rotation_ms:.2f}) | equal to blind_rotate_kernel "
+          f"and to the plain steps ({plain_ms:.3f} ms, "
+          f"{plain_ms / bk.n:.3f} ms per step, each step relaid to the "
+          f"reference layout outside its timed span) | launches {counts} | "
+          f"{card}", flush=True)
 
 
 RADIX_WORDS = 4096
@@ -1651,43 +1743,158 @@ def phase13_circuits_netlist(tp, dev, card):
           f"{card}", flush=True)
 
 
-# The earlier tree's two rotate/decompose kernels, bound through a C
-# wrapper compiled against that tree's sources (its cmux_step.cu defines
-# tfhe_rotate_decompose; its rotate/decompose kernel had no entry alone).
-_EARLIER_ROWS_CU = r"""
-#include "{csrc}/cmux_step.cu"
-extern "C" int earlier_rotate_decompose_rows(
-    const int32_t* acc, const int32_t* bara, int8_t* lhs,
-    const int32_t* combos, int n_combos, int batch, int k1, int n, int l,
-    int b, int m, int lhs_rows, int offset, void* stream) {{
-  const Params p = make_params(batch, k1, n, l, b, m, lhs_rows, offset);
-  cudaError_t err = allow_digit_smem(p);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_rotate_decompose(acc, bara, lhs, combos, n_combos, p,
-                                      static_cast<cudaStream_t>(stream));
-}}
+def build_earlier(csrc, out_dir):
+    """An earlier tree's kernels: its csrc/*.cu compiled (one nvcc per
+    source, all started together) and linked into one library under
+    out_dir, loaded with the C signatures this mode calls."""
+    import ctypes
+
+    from tfhe_tpu_torch.ops import _build
+
+    sources = sorted(csrc.glob("*.cu"))
+    objs = [out_dir / f"earlier_{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([_build._nvcc(), *_build._FLAGS, "-c", "-o",
+                               str(obj), str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    for src, proc in zip(sources, procs):
+        out, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"earlier {src.name}: nvcc failed\n{out}")
+    lib_path = out_dir / "libearlier.so"
+    subprocess.run([_build._nvcc(), "-shared", "-o", str(lib_path),
+                    *map(str, objs)], check=True, timeout=600)
+    for obj in objs:
+        obj.unlink()
+    lib = ctypes.CDLL(str(lib_path.resolve()))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.tfhe_rotate_decompose_rows.argtypes = [vp, vp, vp, vp] + [i32] * 9 \
+        + [vp]
+    lib.tfhe_rotate_decompose.argtypes = [vp, vp, vp] + [i32] * 8 + [vp]
+    lib.tfhe_expand_step.argtypes = [vp, vp, vp] + [i32] * 5 + [vp]
+    lib.tfhe_cmux_step_karatsuba.argtypes = [vp] * 7 + [i32] * 8 + [vp]
+    return lib, lib_path
+
+
+def earlier_fused_tables(plan, p, t):
+    """The tables of the fused kernel before its Hopper redesign (a 16-row
+    tile per block, the reference-layout key): the segment table (each
+    digit segment's mask of raw blocks and limb mode), the terms and their
+    start per output block, as `kernel_tables` gives them."""
+    from tfhe_tpu_torch.ops.blind_rotate import kernel_tables
+
+    combos, terms, term_start, lhs_rows = kernel_tables(plan, p, t)
+    seg_table = [(1 << seg, 0) if seg < plan.m else (0, 0)
+                 for seg in range(lhs_rows)]
+    for dst, mask, two_limb, hi in combos:
+        seg_table[dst] = (mask, 1 if two_limb else 0)
+        if two_limb:
+            seg_table[hi] = (mask, 2)
+    return seg_table, terms, term_start, lhs_rows
+
+
+def turns(before, this, reps):
+    """Earlier, this, this, earlier: (earlier ms, this ms, the four)."""
+    times = [cuda_ms(fn, reps=reps) for fn in (before, this, this, before)]
+    return (times[0] + times[3]) / 2, (times[1] + times[2]) / 2, times
+
+
+# Phases 5, 8 and 12 of a tree's own chip_smoke.py (PR 6's or later), run
+# in that tree's directory: the compact and multi-key paths, the ones
+# whose expansion changed.
+_PATHS_RUN = r"""
+import sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+import tfhe_tpu_torch as tp
+from tfhe_tpu_torch.ops import _build
+_build.load()  # the build, if any, before the timed chains
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+ks = c.Kernels()
+for name in ("blind_rotate_compact", "expand_karatsuba_step",
+             "rotate_decompose_rows", "mk_blind_rotate_compact",
+             "mk_blind_rotate_chunk", "cmux_step_sparse"):
+    ks.entry(name, "", "")
+c.phase5_compact(tp, ks, dev, sys.argv[1])
+c.phase8_mk_two_party(tp, ks, dev, sys.argv[1])
+c.phase12_radix_reliable(tp, dev, sys.argv[1])
 """
+_PATHS_METRICS = (("128_fast8 gates/s", "[5 main path]", "gates/s"),
+                  ("MK 2-party gates/s", "[8 MK main path]", "gates/s"),
+                  ("MK PBS LUTs/s", "[8 MK PBS]", "LUTs/s"),
+                  ("128_radix_reliable adds/s", "[12 radix reliable]",
+                   "adds/s"))
+
+
+def paths_against(earlier, card):
+    """The end-to-end figures of the paths the expansion runs on, earlier
+    tree, this, this, earlier, each turn a process of its own; returns
+    {metric: {"earlier": [2 turns], "this": [2 turns]}}."""
+    import re
+
+    turns = {name: {"earlier": [], "this": []} for name, _, _ in
+             _PATHS_METRICS}
+    for tree, side in ((earlier, "earlier"), (".", "this"), (".", "this"),
+                       (earlier, "earlier")):
+        run = subprocess.run([sys.executable, "-c", _PATHS_RUN, card],
+                             cwd=tree, capture_output=True, text=True,
+                             timeout=900)
+        check(run.returncode == 0,
+              f"paths of {tree}: exit {run.returncode}\n{run.stderr[-2000:]}")
+        for name, tag, unit in _PATHS_METRICS:
+            line = next(ln for ln in run.stdout.splitlines()
+                        if ln.startswith(tag))
+            turns[name][side].append(
+                float(re.search(rf"= ([0-9.]+) {unit}", line).group(1)))
+    for name, vals in turns.items():
+        print(f"[paths] {name}: earlier {vals['earlier']}, this "
+              f"{vals['this']} (turns earlier, this, this, earlier) | "
+              f"{card}", flush=True)
+    return turns
 
 
 def rows_against(earlier: str) -> int:
-    """`python3 chip_smoke.py --rows-against DIR`: the two rotate/decompose
-    kernels of this tree against those of the tree unpacked at DIR (an
-    earlier commit, whose own rotate/decompose kernel takes its combo table
-    in device memory), on one card in one process: each shape timed
-    earlier, this, this, earlier, with CUDA events; the earlier kernel also
-    without combos (its raw digits only), and so this one; outputs compared
-    byte for byte. Writes
-    chiprun_out/rows_against.json."""
+    """`python3 chip_smoke.py --rows-against DIR`: this tree's hand-written
+    kernels that a recent PR redesigned against those of the tree unpacked
+    at DIR (an earlier commit, PR 6's or later: its csrc/*.cu are built as
+    they are and called through their C entries), on one card in one
+    process, each shape timed earlier, this, this, earlier with CUDA events
+    and the outputs compared byte for byte:
+
+    * the rotate/decompose kernel at the presets' shapes and its dense twin;
+    * the expansion, K-major and in the reference layout, at the paths'
+      shapes (`expand_shapes`), beside its byte bound, with this kernel's
+      timing probes: the sums alone, the stores of a constant, an empty
+      grid (the launch floor);
+    * the fused step at 128_fast, 128_pbs, 128_radix and the 80-bit preset,
+      B = 4096 (the earlier kernel handed the reference-layout step, this
+      one the K-major step), beside its plain version and the two-launch
+      step (`blind_rotate_kernel` over the same 2 steps, per step), with
+      this kernel's probes: phase 1 alone, phase 2 alone, and the blocks
+      the card holds at once;
+    * the end-to-end figures of the compact and multi-key paths (phases 5,
+      8 and 12 of each tree's own script, `paths_against`), earlier, this,
+      this, earlier.
+
+    Writes chiprun_out/rows_against.json."""
     import ctypes
-    import os
     from pathlib import Path
 
-    from tfhe_tpu_torch.ops import _build, cmux_step
+    from tfhe_tpu_torch.ops import _build, cmux_step, compact
     from tfhe_tpu_torch.ops.blind_rotate import (
+        blind_rotate_kernel,
+        combo_words,
         digit_rows_kernel,
         digit_rows_plain,
     )
-    from tfhe_tpu_torch.ops.dots import int_table
+    from tfhe_tpu_torch.ops.dots import from_kmajor, int_table, to_kmajor
+    from tfhe_tpu_torch.ops.fused_step import (
+        cmux_step_karatsuba_kernel,
+        cmux_step_karatsuba_plain,
+        cmux_step_karatsuba_probe,
+    )
+    from tfhe_tpu_torch.tgsw import decomp_offset
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1695,35 +1902,27 @@ def rows_against(earlier: str) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
-    csrc = (Path(earlier) / "tfhe_tpu_torch" / "csrc").resolve()
-    src = out_dir / "earlier_rows.cu"
-    src.write_text(_EARLIER_ROWS_CU.format(csrc=csrc))
-    lib_path = out_dir / "libearlier_rows.so"
-    subprocess.run([_build._nvcc(), *_build._FLAGS, "-shared", "-o",
-                    str(lib_path), str(src)], check=True, timeout=600)
-    old = ctypes.CDLL(str(lib_path.resolve()))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    old.earlier_rotate_decompose_rows.argtypes = [vp, vp, vp, vp] \
-        + [i32] * 9 + [vp]
-    old.tfhe_rotate_decompose.argtypes = [vp, vp, vp] + [i32] * 8 + [vp]
-    _build.load()
+    old, lib_path = build_earlier(
+        (Path(earlier) / "tfhe_tpu_torch" / "csrc").resolve(), out_dir)
+    new_lib = _build.load()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    record = {"card": card, "rows": {}, "expand": {}, "fused": {}}
 
     def earlier_rows(acc, bara, combos, lhs_rows, kw):
         bsz, k1, n = acc.shape
         lhs = torch.empty((bsz, lhs_rows * k1 * kw["l"] * T),
                           dtype=torch.int8, device=dev)
-        table = int_table(combos or [(0, 0, 0, 0)], str(dev))
-        err = old.earlier_rotate_decompose_rows(
+        words = combo_words(combos, n // T, lhs_rows)
+        table = torch.tensor(words or [0], dtype=torch.int32)
+        err = old.tfhe_rotate_decompose_rows(
             acc.data_ptr(), bara.data_ptr(), lhs.data_ptr(),
-            table.data_ptr(), len(combos), bsz, k1, n, kw["l"], kw["b"],
+            table.data_ptr(), len(words), bsz, k1, n, kw["l"], kw["b"],
             n // T, lhs_rows, kw["offset"], stream)
         check(err == 0, f"earlier rotate/decompose kernel: error {err}")
         return lhs
 
-    record = {"card": card, "shapes": {}}
     for shape in ROW_TIMED:
         batch = 256 if shape == "MK_8party_K9" else BATCH
         acc, bara, combos, lhs_rows, kw, first = rows_case(gen, shape, batch)
@@ -1733,27 +1932,15 @@ def rows_against(earlier: str) -> int:
             got[:, first:], digit_rows_plain(acc, bara, combos, lhs_rows,
                                              **kw)[:, first:]),
               f"{shape}: this kernel != the earlier one or plain")
-
-        def this():
-            return digit_rows_kernel(acc, bara, combos, lhs_rows, **kw)
-
-        def before():
-            return earlier_rows(acc, bara, combos, lhs_rows, kw)
-
-        times = [cuda_ms(fn, reps=10) for fn in (before, this, this, before)]
-        rec = {"B": batch, "earlier_ms": (times[0] + times[3]) / 2,
-               "ms": (times[1] + times[2]) / 2, "turns_ms": times}
-        rec["bound_ms"], rec["bound_by"] = rows_bound(acc, combos, lhs_rows,
-                                                      kw, first)
-        rec["earlier_raw_only_ms"] = cuda_ms(
-            lambda: earlier_rows(acc, bara, [], lhs_rows, kw), reps=10)
-        rec["raw_only_ms"] = cuda_ms(lambda: digit_rows_kernel(
-            acc, bara, [], lhs_rows, **kw), reps=10)
-        record["shapes"][shape] = rec
-        print(f"[rows] {shape} B={batch}: earlier {rec['earlier_ms']:.4f} ms "
-              f"(raw only {rec['earlier_raw_only_ms']:.4f}), this "
-              f"{rec['ms']:.4f} ms (raw only {rec['raw_only_ms']:.4f}), bound "
-              f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}; turns "
+        was, now, times = turns(
+            lambda: earlier_rows(acc, bara, combos, lhs_rows, kw),
+            lambda: digit_rows_kernel(acc, bara, combos, lhs_rows, **kw), 10)
+        bound, by = rows_bound(acc, combos, lhs_rows, kw, first)
+        record["rows"][shape] = {"B": batch, "earlier_ms": was, "ms": now,
+                                 "turns_ms": times, "bound_ms": bound,
+                                 "bound_by": by}
+        print(f"[rows] {shape} B={batch}: earlier {was:.4f} ms, this "
+              f"{now:.4f} ms, bound {bound:.4f} ms by {by}; turns "
               f"{[round(x, 4) for x in times]} | {card}", flush=True)
 
     # the dense step's kernel: 128_fast at depth 0, B = 4096
@@ -1762,33 +1949,128 @@ def rows_against(earlier: str) -> int:
     dims = (BATCH, 5, 256, 2, 8, 2, 1)
     offset = cmux_step.decomp_offset(2, 8, True)
 
-    def dense(lib, name):
+    def dense(lib):
         buf = torch.empty((BATCH, 1, 2 * 5 * 2 * T), dtype=torch.int8,
                           device=dev)
-        err = getattr(lib, name)(acc.data_ptr(), bara_t[1].data_ptr(),
-                                 buf.data_ptr(), *dims, offset, stream)
-        check(err == 0, f"{name}: error {err}")
+        err = lib.tfhe_rotate_decompose(acc.data_ptr(), bara_t[1].data_ptr(),
+                                        buf.data_ptr(), *dims, offset, stream)
+        check(err == 0, f"tfhe_rotate_decompose: error {err}")
         return buf
 
-    new_lib = _build.load()
-    check(torch.equal(dense(new_lib, "tfhe_rotate_decompose"),
-                      dense(old, "tfhe_rotate_decompose")),
+    check(torch.equal(dense(new_lib), dense(old)),
           "dense: this kernel != the earlier one")
-    times = [cuda_ms(lambda lib=lib: dense(lib, "tfhe_rotate_decompose"),
-                     reps=10) for lib in (old, new_lib, new_lib, old)]
+    was, now, times = turns(lambda: dense(old), lambda: dense(new_lib), 10)
     # acc read once, the digits (M*P*T bytes a row) written once
     bound, by = bound_ms(nbytes(acc) + BATCH * 2 * 5 * 2 * T + 4 * BATCH, 0,
                          PEAK_ALU_OPS_PER_S)
-    record["dense_128_fast_depth0"] = {
-        "B": BATCH, "earlier_ms": (times[0] + times[3]) / 2,
-        "ms": (times[1] + times[2]) / 2, "turns_ms": times,
+    record["rows"]["dense_128_fast_depth0"] = {
+        "B": BATCH, "earlier_ms": was, "ms": now, "turns_ms": times,
         "bound_ms": bound, "bound_by": by}
-    print(f"[rows] dense 128_fast depth 0 B={BATCH}: earlier "
-          f"{(times[0] + times[3]) / 2:.4f} ms, this "
-          f"{(times[1] + times[2]) / 2:.4f} ms, bound {bound:.4f} ms by {by}; "
-          f"turns {[round(x, 4) for x in times]} | {card}", flush=True)
+    print(f"[rows] dense 128_fast depth 0 B={BATCH}: earlier {was:.4f} ms, "
+          f"this {now:.4f} ms, bound {bound:.4f} ms by {by}; turns "
+          f"{[round(x, 4) for x in times]} | {card}", flush=True)
+
+    # the expansion at the paths' shapes
+    for name in expand_shapes():
+        limbs, plan, (bound, by) = expand_case(gen, name)
+        masks = int_table([compact.entry_masks(plan)], str(dev))
+        _, p_rows, k1, n2 = limbs.shape
+        rec = {"bound_ms": bound, "bound_by": by}
+        for kmajor in (True, False):
+            rows = plan.total_rows * p_rows * T
+            shape = (k1, 4, T, rows) if kmajor else (rows, k1 * 4 * T)
+
+            def before(kmajor=kmajor, shape=shape):
+                out = torch.empty(shape, dtype=torch.int8, device=dev)
+                err = old.tfhe_expand_step(
+                    limbs.data_ptr(), masks.data_ptr(), out.data_ptr(),
+                    plan.total_rows, p_rows, k1, n2 // 2, int(kmajor),
+                    stream)
+                check(err == 0, f"earlier tfhe_expand_step: error {err}")
+                return out
+
+            def this(kmajor=kmajor):
+                return compact.expand_step_kernel(limbs, t=T, plan=plan,
+                                                  kmajor=kmajor)
+
+            check(torch.equal(this(), before()),
+                  f"expansion {name}: this kernel != the earlier one")
+            was, now, times = turns(before, this, 20)
+            tag = "kmajor" if kmajor else "reference"
+            rec[tag] = {"earlier_ms": was, "ms": now, "turns_ms": times}
+        for mode, what in ((1, "sums_only_ms"), (2, "stores_only_ms"),
+                           (3, "empty_grid_ms")):
+            rec[what] = cuda_ms(lambda: compact.expand_step_probe(
+                limbs, t=T, plan=plan, probe=mode), reps=20)
+        record["expand"][name] = rec
+        km = rec["kmajor"]
+        print(f"[expand] {name} K-major: earlier {km['earlier_ms']:.4f} ms, "
+              f"this {km['ms']:.4f} ms ({100 * bound / km['ms']:.1f}% of the "
+              f"bound {bound:.4f} ms by {by}); reference layout: earlier "
+              f"{rec['reference']['earlier_ms']:.4f}, this "
+              f"{rec['reference']['ms']:.4f} | probes: sums only "
+              f"{rec['sums_only_ms']:.4f}, stores only "
+              f"{rec['stores_only_ms']:.4f}, empty grid "
+              f"{rec['empty_grid_ms']:.4f} | turns "
+              f"{[round(x, 4) for x in km['turns_ms']]} | {card}", flush=True)
+
+    # the fused step at B = 4096, with its probes: phase 1 alone (the digit
+    # rows), phase 2 alone (the dots), the blocks the card holds at once
+    for preset, *dims in [FUSED_PLANS[0], FUSED_PLANS[3], FUSED_PLANS[1],
+                          FUSED_PLANS[4]]:
+        acc, key, bara_t, kw = random_case(gen, *dims, 2, BATCH)
+        key_km = to_kmajor(key)
+        step, step_km, bara = key[1], key_km[1], bara_t[1]
+        k1, n, l, b = dims[:4]
+        seg_table, terms, term_start, lhs_rows = earlier_fused_tables(
+            kw["plan"], k1 * l, T)
+        tables = [int_table(x, str(dev))
+                  for x in (seg_table, terms, [term_start])]
+        check(torch.equal(from_kmajor(step_km), step), "relayout")
+
+        def before():
+            out = torch.empty_like(acc)
+            err = old.tfhe_cmux_step_karatsuba(
+                acc.data_ptr(), step.data_ptr(), bara.data_ptr(),
+                out.data_ptr(), *(x.data_ptr() for x in tables), BATCH, k1,
+                n, l, b, n // T, lhs_rows, decomp_offset(l, b, b == 8),
+                stream)
+            check(err == 0, f"earlier fused step: error {err}")
+            return out
+
+        def this():
+            return cmux_step_karatsuba_kernel(acc, step_km, bara, **kw)
+
+        got = this()
+        check(torch.equal(got, before()) and torch.equal(
+            got, cmux_step_karatsuba_plain(acc, step, bara, **kw)),
+              f"fused {preset}: this kernel != the earlier one or plain")
+        was, now, times = turns(before, this, 5)
+        plain_ms = cuda_ms(
+            lambda: cmux_step_karatsuba_plain(acc, step, bara, **kw), reps=2)
+        rec = {"B": BATCH, "earlier_ms": was, "ms": now, "plain_ms": plain_ms,
+               "turns_ms": times}
+        rec["resident_blocks"] = cmux_step_karatsuba_probe(
+            acc, step_km, bara, probe=0, **kw)
+        for mode, what in ((1, "phase1_only_ms"), (2, "phase2_only_ms")):
+            rec[what] = cuda_ms(lambda: cmux_step_karatsuba_probe(
+                acc, step_km, bara, probe=mode, **kw), reps=5)
+        rotation = cuda_ms(lambda: blind_rotate_kernel(acc, key_km, bara_t,
+                                                       **kw), reps=3)
+        rec["rotation_step_ms"] = rotation / key_km.shape[0]
+        record["fused"][preset] = rec
+        print(f"[fused] {preset} B={BATCH}: earlier {was:.4f} ms, this "
+              f"{now:.4f} ms (phase 1 alone {rec['phase1_only_ms']:.4f}, "
+              f"phase 2 alone {rec['phase2_only_ms']:.4f}, "
+              f"{rec['resident_blocks']} resident blocks), plain "
+              f"{plain_ms:.4f} ms, blind_rotate_kernel "
+              f"{rec['rotation_step_ms']:.4f} ms a step; turns "
+              f"{[round(x, 4) for x in times]} | {card}", flush=True)
+        del key, key_km
+
+    record["paths"] = paths_against(earlier, card)
     (out_dir / "rows_against.json").write_text(json.dumps(record, indent=1))
-    os.remove(lib_path)
+    lib_path.unlink()
     return 0
 
 
@@ -1824,10 +2106,12 @@ def main() -> int:
                    "rotate_decompose_kernelILi8ELb1E",
                    "rotate_decompose_kernelILi16ELb0E",
                    "leaf_dots_kernel", "mk_unit_dots_kernel",
-                   "expand_kernelILb0", "expand_kernelILb1",
+                   "expand_kernelILb0ELi0E", "expand_kernelILb1ELi0E",
                    "rotate_decompose_dense_kernelILi2E",
                    "rotate_decompose_dense_kernelILi8E",
-                   "fused_step_kernelIa", "fused_step_kernelIs"):
+                   "fused_step_kernelILi2ELb0E", "fused_step_kernelILi4ELb0E",
+                   "fused_step_kernelILi8ELb0E",
+                   "fused_step_kernelILi8ELb1E"):
         at = next((i for i, ln in enumerate(log)
                    if "Compiling entry function" in ln and kernel in ln), None)
         used = next((x for x in log[at:] if "Used" in x), None) \

@@ -88,7 +88,7 @@ def test_gate_constant_matches_reference(shared, value, batch_shape):
 
 def test_bits_round_trip_matches_reference():
     values = np.asarray([0, 1, 0xDEADBEEF, 0xFFFFFFFF], np.uint32)
-    bits = p_circ.int_to_bits(values, 32)
+    bits = p_circ.int_to_bits(values, 32, device="cpu")
     np.testing.assert_array_equal(
         bits.numpy(), np.asarray(j_circ.int_to_bits(jnp.asarray(values), 32)))
     np.testing.assert_array_equal(p_circ.bits_to_int(bits).numpy(),

@@ -4,12 +4,16 @@
   `cmux_step_pallas_karatsuba` in interpret mode, at the shapes the
   reference's own test of that kernel uses, and against
   `tfhe_tpu.bootstrap.mux_rotate_karatsuba`; array-equal, no tolerance.
-* An emulation of the CUDA kernel's arithmetic from its tables
-  (`fused_tables`: raw digits only, every other digit segment formed from
-  the segment table while it is staged) against the plain version, at the
-  plans the kernel must take.
-* The segment table itself, the dispatcher, what the wrapper refuses.
-* On a CUDA card only: the kernel against the plain version.
+* An emulation of the CUDA kernel from its tables (`fused_tables`: the
+  blocks of a persistent grid form the digit rows of their groups of rows,
+  then run the dots of their (batch tile, column tile) units;
+  `test_torch_expand_fused.emulate_fused_kernel`) against the plain
+  version, at the plans the kernel must take.
+* The tables themselves (every digit segment a product reads is written,
+  the blocks' shares of rows and units), the dispatcher, what the wrapper
+  refuses.
+* On a CUDA card only: the kernel, on the K-major step, against the plain
+  version.
 """
 
 import jax.numpy as jnp
@@ -23,9 +27,10 @@ from tfhe_tpu.tgsw import decomp_offset as j_decomp_offset
 from tfhe_tpu_torch import bootstrap as p_bs
 from tfhe_tpu_torch.ops import fused_step
 from tfhe_tpu_torch.ops.blind_rotate import blind_rotate_plain, kernel_tables
-from tfhe_tpu_torch.ops.conv import i8_matmul
+from tfhe_tpu_torch.ops.dots import to_kmajor
 from tfhe_tpu_torch.ops.karatsuba import bake_karatsuba, karatsuba_plan
-from tfhe_tpu_torch.tgsw import decomp_offset, prepare_tgsw
+from tfhe_tpu_torch.tgsw import prepare_tgsw
+from test_torch_expand_fused import emulate_fused_kernel
 
 torch.set_num_threads(2)
 
@@ -71,53 +76,6 @@ def test_plain_step_matches_reference_kernel(n, l, b, t, batch, depth):
     np.testing.assert_array_equal(got.numpy()[0], acc[0])  # bara == 0
 
 
-def emulate_fused_kernel(acc, e_step, bara, *, l, b, t, plan, balanced):
-    """The fused kernel's arithmetic: raw digits per row, then per output
-    group the terms, each digit segment formed from the segment table."""
-    bsz, k1, n = acc.shape
-    m, pt = n // t, k1 * l * t
-    seg_table, terms, term_start, lhs_rows = fused_step.fused_tables(
-        plan, k1 * l, t)
-    offset = decomp_offset(l, b, balanced)
-    acc = acc.to(torch.int64)
-    sh = bara.to(torch.int64) & (2 * n - 1)
-    src = (torch.arange(n)[None, :] - sh[:, None]) & (2 * n - 1)
-    doubled = torch.cat([acc, -acc], dim=-1)
-    rot = torch.gather(doubled, -1, src[:, None, :].expand(bsz, k1, n))
-    shifted = (rot - acc + offset) & 0xFFFFFFFF
-    raw = torch.zeros((bsz, m, pt), dtype=torch.int64)  # phase A
-    for j in range(k1):
-        for il in range(l):
-            d = ((shifted[:, j] >> (32 - (il + 1) * b))
-                 & ((1 << b) - 1)) - (1 << (b - 1))
-            for i in range(m):
-                seg = slice((j * l + il) * t, (j * l + il + 1) * t)
-                raw[:, i, seg] = d[:, i * t:(i + 1) * t]
-
-    def staged(seg):
-        mask, mode = seg_table[seg]
-        assert mask, f"a term reads segment {seg}, which nothing defines"
-        v = sum(raw[:, blk] for blk in range(m) if mask >> blk & 1)
-        if mode:
-            lo = ((v & 127) ^ 64) - 64
-            v = lo if mode == 1 else (v - lo) // 128
-        assert v.min() >= -128 and v.max() <= 127
-        return v.to(torch.int8)
-
-    out = acc.clone()
-    for posm in range(m):
-        total = torch.zeros((bsz, e_step.shape[-1]), dtype=torch.int64)
-        for _, lseg, eseg, nseg, shift, sign in \
-                terms[term_start[posm]:term_start[posm + 1]]:
-            lhs = torch.cat([staged(lseg + i) for i in range(nseg)], dim=-1)
-            prod = i8_matmul(lhs, e_step[eseg * pt:(eseg + nseg) * pt])
-            total += sign * (prod.to(torch.int64) << shift)
-        total = total.reshape(bsz, k1, 4, t)
-        word = sum(total[:, :, limb] << (8 * limb) for limb in range(4))
-        out[:, :, posm * t:(posm + 1) * t] += word
-    return (((out + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
-
-
 PLANS = [  # k1, n, l, b, depth
     (5, 256, 2, 8, 1),    # 128_fast
     (2, 1024, 3, 7, 2),   # 128, 128_radix
@@ -140,7 +98,9 @@ def test_fused_tables_emulation_matches_plain(k1, n, l, b, depth):
     bara[0] = 0
     kw = dict(l=l, b=b, t=t, plan=plan, balanced=(b == 8))
     want = fused_step.cmux_step_karatsuba_plain(acc, e_step, bara, **kw)
-    got = emulate_fused_kernel(acc, e_step, bara, **kw)
+    # one short batch tile, on a card of 2 resident blocks
+    got = emulate_fused_kernel(acc, to_kmajor(e_step), bara, **kw,
+                               resident=2)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     # and one step of the whole rotation is this step
     rot = blind_rotate_plain(acc, e_step[None], bara[None], **kw)
@@ -149,28 +109,40 @@ def test_fused_tables_emulation_matches_plain(k1, n, l, b, depth):
 
 @pytest.mark.parametrize("k1,n,l,b,depth", PLANS)
 def test_segment_table_covers_what_the_terms_read(k1, n, l, b, depth):
+    """Every digit segment a product of the fused tables reads is one the
+    front half writes (raw for b <= 8, else a combo's limb), the products
+    are the plan's terms each once, and the blocks' groups and units cover
+    the rows and the (tile, column tile) pairs once."""
     t = 128
     plan = karatsuba_plan(n // t, depth, b)
-    m = plan.m
-    seg_table, terms, term_start, lhs_rows = fused_step.fused_tables(
-        plan, k1 * l, t)
-    combos, terms_k, term_start_k, lhs_rows_k = kernel_tables(plan, k1 * l, t)
-    assert (terms, term_start, lhs_rows) == (terms_k, term_start_k,
-                                             lhs_rows_k)
-    assert len(seg_table) == lhs_rows
-    assert seg_table[:m] == [(1 << i, 0) for i in range(m)]
-    read = {seg for _, lseg, _, nseg, _, _ in terms
-            for seg in range(lseg, lseg + nseg)}
-    for seg in read:
-        mask, mode = seg_table[seg]
-        assert 0 < mask < (1 << m) and mode in (0, 1, 2)
-    if b > 8:  # wide raw digits never feed a dot directly
-        assert min(read) >= m
-    for dst, mask, two, hi in combos:
-        assert seg_table[dst] == (mask, 1 if two else 0)
-        if two:
-            assert seg_table[hi] == (mask, 2)
-    assert fused_step.TILE_ROWS == 16
+    m, pt = plan.m, k1 * l * t
+    combos, lhs_rows, tables, items = fused_step.fused_tables(plan, k1, l, t)
+    _, terms, _, lhs_rows_k = kernel_tables(plan, k1 * l, t)
+    assert lhs_rows == lhs_rows_k <= 128 and len(combos) <= 64
+    written = set(range(m)) if b <= 8 else set()
+    for dst, _, two, hi in combos:
+        written |= {dst, hi} if two else {dst}
+    expanded = []
+    for a_off, b_off, npieces, chunks, shift, tb, te, _ in tables.products:
+        assert npieces == 1 and a_off % pt == 0 and (chunks * 128) % pt == 0
+        segs = range(a_off // pt, (a_off + chunks * 128) // pt)
+        assert set(segs) <= written
+        expanded += [(posm, segs[0], b_off // pt, len(segs), shift, sign)
+                     for posm, sign in tables.targets[tb:te]]
+    assert sorted(expanded) == sorted(terms)
+    assert items == tuple((col, 0, len(tables.products), 0)
+                          for col in range(k1 * 4))
+    batch = 300  # 5 tiles, the last of 44 rows: 3 groups
+    for resident in (1, 7, 264):
+        blocks = fused_step.grid_blocks(batch, len(items), resident)
+        rows = [r for i in range(blocks)
+                for g in fused_step.block_groups(batch, blocks, i) for r in g]
+        assert sorted(rows) == list(range(batch))
+        units = [u for i in range(blocks)
+                 for u in fused_step.block_units(batch, len(items), blocks,
+                                                 i)]
+        assert sorted(units) == [(tile, col) for tile in range(5)
+                                 for col in range(k1 * 4)]
 
 
 def test_dispatcher_and_refusals():
@@ -184,6 +156,9 @@ def test_dispatcher_and_refusals():
     assert torch.equal(out, acc) and out.data_ptr() != acc.data_ptr()
     before = fused_step.cmux_step_karatsuba_kernel.launches
     with pytest.raises(ValueError, match="CUDA"):
+        fused_step.cmux_step_karatsuba_kernel(acc, to_kmajor(e_step), bara,
+                                              **kw)
+    with pytest.raises(ValueError, match="reference layout"):
         fused_step.cmux_step_karatsuba_kernel(acc, e_step, bara, **kw)
     assert fused_step.cmux_step_karatsuba_kernel.launches == before
 
@@ -204,6 +179,7 @@ def test_fused_kernel_matches_plain_on_card():
         bara = torch.from_numpy(
             rng.integers(-n, n, (70,)).astype(np.int32)).to(dev)
         kw = dict(l=l, b=b, t=128, plan=plan, balanced=(b == 8))
-        got = fused_step.cmux_step_karatsuba(acc, e_step, bara, **kw)
+        got = fused_step.cmux_step_karatsuba(acc, to_kmajor(e_step), bara,
+                                             **kw)
         want = fused_step.cmux_step_karatsuba_plain(acc, e_step, bara, **kw)
         assert torch.equal(got, want)

@@ -68,7 +68,7 @@ def keys():
 @pytest.mark.parametrize("space", [2, 4, 8])
 def test_encoding_round_trip(space):
     msgs = np.arange(2 * space)
-    enc = p_pbs.encode_pbs(msgs, space)
+    enc = p_pbs.encode_pbs(msgs, space, device="cpu")
     np.testing.assert_array_equal(
         enc.numpy(), np.asarray(j_pbs.encode_pbs(jnp.asarray(msgs), space)))
     np.testing.assert_array_equal(p_pbs.decode_pbs(enc, space).numpy(), msgs)
@@ -88,13 +88,13 @@ def test_lut_test_polynomial_matches_reference(lead):
     rng = np.random.default_rng(5)
     space, n = 8, 256
     table = rng.integers(0, space, lead + (space,))
-    got = p_pbs.lut_test_polynomial(table, space, n)
+    got = p_pbs.lut_test_polynomial(table, space, n, device="cpu")
     want = j_pbs.lut_test_polynomial(jnp.asarray(table), space, n)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # repeat_interleave: window m holds entry m
     assert got.shape == lead + (n,)
     assert got[..., 33].tolist() == p_pbs.encode_pbs(
-        table[..., 1], space).tolist()
+        table[..., 1], space, device="cpu").tolist()
 
 
 @pytest.mark.parametrize("q", [2, 4])
@@ -104,10 +104,11 @@ def test_lut_many_test_polynomial_matches_reference(q, lead):
     space, n = 8, 256
     w = n // space
     tables = rng.integers(0, space, lead + (q, space))
-    got = p_pbs.lut_many_test_polynomial(tables, space, q, n)
+    got = p_pbs.lut_many_test_polynomial(tables, space, q, n,
+                                         device="cpu")
     want = j_pbs.lut_many_test_polynomial(jnp.asarray(tables), space, q, n)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    enc = p_pbs.encode_pbs(tables, space).numpy()
+    enc = p_pbs.encode_pbs(tables, space, device="cpu").numpy()
     for m in range(space):
         for r in range(w):
             np.testing.assert_array_equal(got[..., m * w + r].numpy(),
@@ -279,3 +280,44 @@ def test_mk_programmable_bootstrap_many_matches_reference(mk_keys):
     assert got.b.shape == (4, q) and got.a.shape[:2] == (4, q)
     np.testing.assert_array_equal(
         p_pbs.mk_decrypt_pbs(sks_p, got, space).numpy(), tables[:, msgs].T)
+
+
+@pytest.mark.parametrize("helper", ["encode_pbs", "lut_test_polynomial",
+                                    "lut_many_test_polynomial",
+                                    "int_to_digits", "int_to_bits"])
+def test_helpers_place_inputs_like_the_entry_points(helper, monkeypatch):
+    """device=None: a CPU tensor stays on the CPU, a list goes to the card
+    (the device `torch.as_tensor` is asked for, recorded here so that the
+    test needs no card)."""
+    from tfhe_tpu_torch import circuits as p_circ
+    from tfhe_tpu_torch import radix as p_radix
+
+    calls = {
+        "encode_pbs": lambda v: p_pbs.encode_pbs(v, 4),
+        "lut_test_polynomial": lambda v: p_pbs.lut_test_polynomial(v, 4, 16),
+        "lut_many_test_polynomial":
+            lambda v: p_pbs.lut_many_test_polynomial([v, v], 4, 2, 16),
+        "int_to_digits": lambda v: p_radix.int_to_digits(v, 3),
+        "int_to_bits": lambda v: p_circ.int_to_bits(v, 5),
+    }
+    call = calls[helper]
+    values = [0, 1, 2, 3]
+    asked = []
+    as_tensor = torch.as_tensor
+
+    def spy(data, *args, device=None, **kw):
+        asked.append(str(device))
+        return as_tensor(data, *args, **kw)  # built on the CPU all the same
+
+    if helper == "lut_many_test_polynomial":  # a tensor input stays a tensor
+        cpu_in = torch.tensor([values, values])
+        kept = p_pbs.lut_many_test_polynomial(cpu_in, 4, 2, 16)
+    else:
+        kept = call(torch.tensor(values))
+    assert kept.device.type == "cpu"
+    monkeypatch.setattr(torch, "as_tensor", spy)
+    call(values)
+    assert asked and set(asked) == {"cuda"}, asked
+    asked.clear()
+    calls["encode_pbs"](torch.tensor(values))
+    assert set(asked) == {"cpu"}, asked

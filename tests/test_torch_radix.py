@@ -70,7 +70,7 @@ def shared():
 
 def test_digit_packing_matches_reference():
     values = np.asarray([0, 1, 0xDEADBEEF, 0xFFFFFFFF, 77], np.uint32)
-    got = p_radix.int_to_digits(values, 16)
+    got = p_radix.int_to_digits(values, 16, device="cpu")
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(j_radix.int_to_digits(jnp.asarray(values), 16)))
     back = p_radix.digits_to_int(got)

@@ -26,10 +26,13 @@ from .gates import (
     gate_xor,
 )
 from .lwe import LweSample
+from .numeric import input_device
 
 
 def int_to_bits(values, bits: int, device=None) -> torch.Tensor:
-    """int[...] -> bool[..., bits], LSB first."""
+    """int[...] -> bool[..., bits], LSB first, on `device`, or else the
+    device of a tensor `values`, or else the card."""
+    device = input_device(values, device)
     if not isinstance(values, torch.Tensor):
         values = np.asarray(values).astype(np.int64)
     values = torch.as_tensor(values, device=device).to(torch.int64)

@@ -19,7 +19,6 @@
 namespace {
 
 constexpr int kT = 128;  // Toeplitz block size
-constexpr int kThreads = 256;
 constexpr int kCols = kT / 4;  // four-coefficient columns of a block: a warp
 constexpr int kMaxCombos = 64;
 constexpr int kMaxRowWarps = 16;  // a rotate/decompose block's warps
@@ -59,20 +58,6 @@ struct Params {
 // offset o = src & 3 that is the same for the whole warp; the lane reads
 // the aligned 16-byte words q = src >> 2 and q + 1 (32 lanes on 32
 // consecutive 16-byte words: no bank conflict) and keeps words o..o+3.
-
-// ((X^bara - 1) * acc)[j][r] + offset for one ciphertext, one word at a
-// time from device memory (the fused step, fused_step.cu): a = acc row
-// [k1, n], s = bara & (2N-1).
-__device__ __forceinline__ uint32_t rotated_minus_acc(
-    const int32_t* __restrict__ poly, int n, int r, uint32_t s,
-    uint32_t offset) {
-  // (X^s * poly)[r] = doubled[(r - s) mod 2N], doubled = [poly, -poly]
-  const uint32_t two_n_mask = 2u * (uint32_t)n - 1u;
-  const uint32_t src = ((uint32_t)r - s) & two_n_mask;
-  const uint32_t rot = src < (uint32_t)n ? (uint32_t)poly[src]
-                                         : 0u - (uint32_t)poly[src - n];
-  return rot - (uint32_t)poly[r] + offset;
-}
 
 // Four words of the doubled polynomial [poly, -poly], from word 4q.
 __device__ __forceinline__ uint4 doubled4(const uint4* __restrict__ poly4,
@@ -133,50 +118,69 @@ __device__ __forceinline__ void store4(int8_t* dst, uint32_t word) {
 // than the level's own work.
 __host__ __device__ constexpr bool per_level_items(int m) { return m >= 8; }
 
-// The front half: stage the block's row, then for every (j, il) of a warp's
-// items call back(row, j, il, lane, shifted), where shifted(i) gives the
-// lane's four words of block i.
-template <int M, typename Back>
-__device__ __forceinline__ void rotate_rows(const int32_t* __restrict__ acc,
-                                            const int32_t* __restrict__ bara,
-                                            const Params& p, Back back) {
-  extern __shared__ __align__(16) uint4 row_s[];
-  constexpr int n = M * kT, n4 = n / 4;
-  const int row = blockIdx.x;
-  const int row16 = p.k1 * n4;
-  const uint4* src = reinterpret_cast<const uint4*>(acc) + (size_t)row * row16;
-  for (int x = threadIdx.x; x < row16; x += blockDim.x) {
-    const uint32_t dst = (uint32_t)__cvta_generic_to_shared(row_s + x);
+// Stage `count` ciphertext rows from `row0` on (K*N words each) into
+// rows_s by 16-byte cp.async copies and wait for this thread's copies; the
+// caller's barrier makes them visible to the block.
+__device__ __forceinline__ void stage_acc_rows(
+    const int32_t* __restrict__ acc, int row0, int count, int row16,
+    uint4* rows_s) {
+  const uint4* src =
+      reinterpret_cast<const uint4*>(acc) + (size_t)row0 * row16;
+  for (int x = threadIdx.x; x < count * row16; x += blockDim.x) {
+    const uint32_t dst = (uint32_t)__cvta_generic_to_shared(rows_s + x);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
                  "l"(src + x)
                  : "memory");
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
+}
 
+// The front half on `count` staged rows (row row0 + r at rows_s + r*K*N/4):
+// for every (row, j, il) of the warps' items call back(row, j, il, lane,
+// shifted), where shifted(i) gives the lane's four words of block i. The
+// block's warps share the items of all the rows.
+template <int M, typename Back>
+__device__ __forceinline__ void rotate_items(const uint4* __restrict__ rows_s,
+                                             const int32_t* __restrict__ bara,
+                                             int row0, int count,
+                                             const Params& p, Back back) {
+  constexpr int n = M * kT, n4 = n / 4;
   const int lane = threadIdx.x & 31;
-  const uint32_t s = (uint32_t)bara[row] & (2u * n - 1u);
   const uint32_t offset = (uint32_t)p.offset;
-  if constexpr (per_level_items(M)) {
-    for (int item = threadIdx.x >> 5; item < p.k1 * p.l;
-         item += blockDim.x >> 5) {
-      const int j = item / p.l;
-      const uint4* poly4 = row_s + (size_t)j * n4;
-      back(row, j, item - j * p.l, lane, [&](int i) {
+  const int per_row = per_level_items(M) ? p.k1 * p.l : p.k1;
+  for (int item = threadIdx.x >> 5; item < count * per_row;
+       item += blockDim.x >> 5) {
+    const int r = item / per_row, x = item - r * per_row;
+    const int row = row0 + r;
+    const uint32_t s = (uint32_t)bara[row] & (2u * n - 1u);
+    if constexpr (per_level_items(M)) {
+      const int j = x / p.l;
+      const uint4* poly4 = rows_s + ((size_t)r * p.k1 + j) * n4;
+      back(row, j, x - j * p.l, lane, [&](int i) {
         return rotated_minus4(poly4, n4, s, i * kCols + lane, offset);
       });
-    }
-  } else {
-    for (int j = threadIdx.x >> 5; j < p.k1; j += blockDim.x >> 5) {
-      const uint4* poly4 = row_s + (size_t)j * n4;
+    } else {
+      const uint4* poly4 = rows_s + ((size_t)r * p.k1 + x) * n4;
       uint4 sh[M];
 #pragma unroll
       for (int i = 0; i < M; ++i)
         sh[i] = rotated_minus4(poly4, n4, s, i * kCols + lane, offset);
       for (int il = 0; il < p.l; ++il)
-        back(row, j, il, lane, [&](int i) { return sh[i]; });
+        back(row, x, il, lane, [&](int i) { return sh[i]; });
     }
   }
+}
+
+// The front half of one block per ciphertext row: stage the block's row,
+// then its items.
+template <int M, typename Back>
+__device__ __forceinline__ void rotate_rows(const int32_t* __restrict__ acc,
+                                            const int32_t* __restrict__ bara,
+                                            const Params& p, Back back) {
+  extern __shared__ __align__(16) uint4 row_s[];
+  stage_acc_rows(acc, blockIdx.x, 1, p.k1 * (M * kT / 4), row_s);
+  __syncthreads();
+  rotate_items<M>(row_s, bara, blockIdx.x, 1, p, back);
 }
 
 // Steps 1-4 of a step: the digit operand, per ciphertext lhs_rows segments
@@ -192,6 +196,89 @@ __device__ __forceinline__ void rotate_rows(const int32_t* __restrict__ acc,
 // carry between them; the bias comes off, with 4096 added to keep each half
 // positive, before the bytes are cut out. For b > 8 (Wide) each lane is an
 // int.
+//
+// store_digits is the back half for one (row, j, il) of a warp: the lane's
+// 4 bytes of every raw block and every combo segment.
+template <int M, bool Wide, typename Shifted>
+__device__ __forceinline__ void store_digits(const Params& p,
+                                             int8_t* __restrict__ lhs,
+                                             int row, int j, int il, int lane,
+                                             Shifted shifted) {
+  const uint32_t mask = (1u << p.b) - 1u;
+  const int half = 1 << (p.b - 1);
+  const int shift = 32 - (il + 1) * p.b;
+  int8_t* dst = lhs + (size_t)row * p.lhs_stride +
+                (size_t)(j * p.l + il) * kT + 4 * lane;
+  if constexpr (Wide) {
+    int d[M][4];
+#pragma unroll
+    for (int i = 0; i < M; ++i) cut4(shifted(i), shift, mask, half, d[i]);
+    for (int c = 0; c < p.n_combos; ++c) {
+      const uint32_t cw = p.combos[c];
+      int v[4] = {0, 0, 0, 0}, hi[4];
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        if ((cw >> i) & 1u) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] += d[i][e];
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // the plan makes every combo two-limb
+        const int lo = ((v[e] & 127) ^ 64) - 64;  // in [-64, 63]
+        hi[e] = (v[e] - lo) >> 7;  // exact: v - lo is 128 * hi
+        v[e] = lo;
+      }
+      store4(dst + (size_t)((cw >> 17) & 127u) * p.pt,
+             pack4(v[0], v[1], v[2], v[3]));
+      store4(dst + (size_t)((cw >> 24) & 127u) * p.pt,
+             pack4(hi[0], hi[1], hi[2], hi[3]));
+    }
+  } else {
+    uint32_t e[M][2];  // biased digits of lanes (0, 1) and (2, 3)
+    // u - half, kept positive in each half: its low byte is the digit
+    const uint32_t raw_bias = (0x100u - (uint32_t)half) * 0x10001u;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const uint4 w = shifted(i);
+      e[i][0] = __byte_perm((w.x >> shift) & mask, (w.y >> shift) & mask,
+                            0x5410);
+      e[i][1] = __byte_perm((w.z >> shift) & mask, (w.w >> shift) & mask,
+                            0x5410);
+      store4(dst + (size_t)i * p.pt,
+             __byte_perm(e[i][0] + raw_bias, e[i][1] + raw_bias, 0x6420));
+    }
+    for (int c = 0; c < p.n_combos; ++c) {
+      const uint32_t cw = p.combos[c];
+      // v + 4096 in each half: v = sum of u - popc * half
+      const uint32_t bias =
+          (0x1000u - (uint32_t)__popc(cw & 0xFFFFu) * half) * 0x10001u;
+      uint32_t w0 = bias, w1 = bias;
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        if ((cw >> i) & 1u) {
+          w0 += e[i][0];
+          w1 += e[i][1];
+        }
+      }
+      int8_t* out = dst + (size_t)((cw >> 17) & 127u) * p.pt;
+      if (!((cw >> 16) & 1u)) {
+        store4(out, __byte_perm(w0, w1, 0x6420));
+      } else {
+        // x = (v & 127) ^ 64, lo = x - 64; hi = (v + 4096 - x + 64) / 128
+        // - 32, exact; each half stays in [0, 2^16)
+        const uint32_t x0 = (w0 & 0x007F007Fu) ^ 0x00400040u;
+        const uint32_t x1 = (w1 & 0x007F007Fu) ^ 0x00400040u;
+        const uint32_t h0 = ((w0 - x0 + 0x00400040u) >> 7) & 0x007F007Fu;
+        const uint32_t h1 = ((w1 - x1 + 0x00400040u) >> 7) & 0x007F007Fu;
+        store4(out, __byte_perm(x0 + 0x00C000C0u, x1 + 0x00C000C0u, 0x6420));
+        store4(dst + (size_t)((cw >> 24) & 127u) * p.pt,
+               __byte_perm(h0 + 0x00E000E0u, h1 + 0x00E000E0u, 0x6420));
+      }
+    }
+  }
+}
+
 template <int M, bool Wide>
 __global__ void __launch_bounds__(kMaxRowWarps * 32)
 rotate_decompose_kernel(const int32_t* __restrict__ acc,
@@ -200,80 +287,7 @@ rotate_decompose_kernel(const int32_t* __restrict__ acc,
                         const __grid_constant__ Params p) {
   rotate_rows<M>(acc, bara_step, p, [&](int row, int j, int il, int lane,
                                          auto shifted) {
-    const uint32_t mask = (1u << p.b) - 1u;
-    const int half = 1 << (p.b - 1);
-    const int shift = 32 - (il + 1) * p.b;
-    int8_t* dst = lhs + (size_t)row * p.lhs_stride +
-                  (size_t)(j * p.l + il) * kT + 4 * lane;
-    if constexpr (Wide) {
-      int d[M][4];
-#pragma unroll
-      for (int i = 0; i < M; ++i) cut4(shifted(i), shift, mask, half, d[i]);
-      for (int c = 0; c < p.n_combos; ++c) {
-        const uint32_t cw = p.combos[c];
-        int v[4] = {0, 0, 0, 0}, hi[4];
-#pragma unroll
-        for (int i = 0; i < M; ++i) {
-          if ((cw >> i) & 1u) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) v[e] += d[i][e];
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {  // the plan makes every combo two-limb
-          const int lo = ((v[e] & 127) ^ 64) - 64;  // in [-64, 63]
-          hi[e] = (v[e] - lo) >> 7;  // exact: v - lo is 128 * hi
-          v[e] = lo;
-        }
-        store4(dst + (size_t)((cw >> 17) & 127u) * p.pt,
-               pack4(v[0], v[1], v[2], v[3]));
-        store4(dst + (size_t)((cw >> 24) & 127u) * p.pt,
-               pack4(hi[0], hi[1], hi[2], hi[3]));
-      }
-    } else {
-      uint32_t e[M][2];  // biased digits of lanes (0, 1) and (2, 3)
-      // u - half, kept positive in each half: its low byte is the digit
-      const uint32_t raw_bias = (0x100u - (uint32_t)half) * 0x10001u;
-#pragma unroll
-      for (int i = 0; i < M; ++i) {
-        const uint4 w = shifted(i);
-        e[i][0] = __byte_perm((w.x >> shift) & mask, (w.y >> shift) & mask,
-                              0x5410);
-        e[i][1] = __byte_perm((w.z >> shift) & mask, (w.w >> shift) & mask,
-                              0x5410);
-        store4(dst + (size_t)i * p.pt,
-               __byte_perm(e[i][0] + raw_bias, e[i][1] + raw_bias, 0x6420));
-      }
-      for (int c = 0; c < p.n_combos; ++c) {
-        const uint32_t cw = p.combos[c];
-        // v + 4096 in each half: v = sum of u - popc * half
-        const uint32_t bias =
-            (0x1000u - (uint32_t)__popc(cw & 0xFFFFu) * half) * 0x10001u;
-        uint32_t w0 = bias, w1 = bias;
-#pragma unroll
-        for (int i = 0; i < M; ++i) {
-          if ((cw >> i) & 1u) {
-            w0 += e[i][0];
-            w1 += e[i][1];
-          }
-        }
-        int8_t* out = dst + (size_t)((cw >> 17) & 127u) * p.pt;
-        if (!((cw >> 16) & 1u)) {
-          store4(out, __byte_perm(w0, w1, 0x6420));
-        } else {
-          // x = (v & 127) ^ 64, lo = x - 64; hi = (v + 4096 - x + 64) / 128
-          // - 32, exact; each half stays in [0, 2^16)
-          const uint32_t x0 = (w0 & 0x007F007Fu) ^ 0x00400040u;
-          const uint32_t x1 = (w1 & 0x007F007Fu) ^ 0x00400040u;
-          const uint32_t h0 = ((w0 - x0 + 0x00400040u) >> 7) & 0x007F007Fu;
-          const uint32_t h1 = ((w1 - x1 + 0x00400040u) >> 7) & 0x007F007Fu;
-          store4(out,
-                 __byte_perm(x0 + 0x00C000C0u, x1 + 0x00C000C0u, 0x6420));
-          store4(dst + (size_t)((cw >> 24) & 127u) * p.pt,
-                 __byte_perm(h0 + 0x00E000E0u, h1 + 0x00E000E0u, 0x6420));
-        }
-      }
-    }
+    store_digits<M, Wide>(p, lhs, row, j, il, lane, shifted);
   });
 }
 
@@ -287,7 +301,8 @@ leaf_dots_kernel(const __grid_constant__ CUtensorMap a_map,
                  int32_t* __restrict__ acc, const int32_t* __restrict__ products,
                  const int32_t* __restrict__ targets,
                  const int32_t* __restrict__ items, DotsParams p) {
-  dots_body<true>(&a_map, &b_map, acc, products, targets, items, p);
+  dots_body<true, false>(&a_map, &b_map, acc, acc, products, targets,
+                         OneItem{items}, p);
 }
 
 __global__ void __launch_bounds__(kDotThreads, 2)
@@ -297,7 +312,8 @@ mk_unit_dots_kernel(const __grid_constant__ CUtensorMap a_map,
                     const int32_t* __restrict__ products,
                     const int32_t* __restrict__ targets,
                     const int32_t* __restrict__ items, DotsParams p) {
-  dots_body<false>(&a_map, &b_map, acc, products, targets, items, p);
+  dots_body<false, false>(&a_map, &b_map, acc, acc, products, targets,
+                          OneItem{items}, p);
 }
 
 // Shared memory past 48 KB needs the opt-in; every entry point calls this
@@ -327,83 +343,141 @@ inline cudaError_t launch_dots(int32_t* acc, DotsLaunch& d, int step,
 
 // The expansion of one step's compact limbs int8[4, P, K, 2N] into the
 // Karatsuba operand, rows R*P*T (bake row r, key row pj, u) by columns
-// K*4*T (poly k, limb, w); one block per (bake row r, key row pj, output
-// polynomial k): 4 * T * T bytes. KMajor = false writes the reference layout
-// int8[R*P*T, K*4*T] (bake_karatsuba's); KMajor = true writes the layout the
-// dots kernels read, int8[K, 4, T, R*P*T] (ops/dots.py:to_kmajor). A
-// multi-key step's nonzero blocks int8[4, NZ, l, 2N] are the case P = NZ*l,
-// K = 1.
-template <bool KMajor>
-__global__ void __launch_bounds__(kThreads)
+// K*4*T (poly k, limb, w). For each (r, pj, k) the sums C[j], j < 2T, of
+// the doubled words at d*T - T + j (mod 2N) over the blocks d of row r's
+// entry mask are split into four balanced bytes, and limb `limb` of the
+// Toeplitz block is W[u, w] = C_limb[T + w - u]. KMajor = false writes the
+// reference layout int8[R*P*T, K*4*T] (bake_karatsuba's); KMajor = true
+// the layout the dots kernels read, int8[K, 4, T, R*P*T]
+// (ops/dots.py:to_kmajor). A multi-key step's nonzero blocks
+// int8[4, NZ, l, 2N] are the case P = NZ*l, K = 1.
+//
+// What bounds it: the bytes it writes, R*P*T * K*4*T a step (10.8 MB at
+// 128_fast8, 41.3 MB at the 2-party MK party 1), against a few KB of sums.
+// The design, for that:
+// * One block of 128 threads per unit (r, pj, k, limb): 16 KB of output,
+//   so there are 4x as many blocks as units of (r, pj, k) and every SM gets
+//   an even share (162 blocks of 64 KB at 128_fast8 left 30 SMs with
+//   twice the bytes of the others).
+// * The sums: thread q < 64 owns C[4q .. 4q + 3] and reads each plane's 4
+//   bytes of a block as one aligned word (d*T - T + 4q is a multiple of 4,
+//   and so is 2N). Every unit of (r, pj, k) sums the same words again, a
+//   few KB from L1 and L2 beside 16 KB written.
+// * The limb's 2T bytes go to shared memory in the order a line reads
+//   them. Reference: line (u, limb) is C[T - u .. T - u + 127], forward.
+//   K-major: line (limb, w) is C[T + w - u] for u = 0 .. 127, reversed, so
+//   the bytes are stored reversed (R[i] = C[2T - 1 - i]) and the line is
+//   R[T - 1 - w .. T - 1 - w + 127], forward. A thread writes 16 bytes a
+//   store, funnel-shifted out of five aligned words; a warp writes four
+//   whole 128-byte lines.
+// Probe (timing only, never on a path; chip_smoke.py --rows-against):
+// 1 = the sums alone (their bytes reach shared memory, no line is stored),
+// 2 = the stores alone (a constant C), 3 = an empty block.
+constexpr int kExpandThreads = 128;
+
+template <bool KMajor, int Probe>
+__global__ void __launch_bounds__(kExpandThreads)
 expand_kernel(const int8_t* __restrict__ limbs_step,
               const int32_t* __restrict__ entry_masks,
               int8_t* __restrict__ out, int p_rows, int k1, int n) {
-  __shared__ __align__(4) int8_t cl[4][2 * kT];  // balanced bytes of C[j]
-  const int r = blockIdx.x, pj = blockIdx.y, k = blockIdx.z;
-  const uint32_t n2_mask = 2u * (uint32_t)n - 1u;
-  const size_t plane = (size_t)p_rows * k1 * 2 * n;  // one limb of the step
-  const int8_t* src = limbs_step + ((size_t)pj * k1 + k) * 2 * n;
-  const uint32_t mask = (uint32_t)entry_masks[r];
+  __shared__ __align__(16) uint32_t cw[2 * kT / 4 + 4];  // the limb's bytes
+  if constexpr (Probe == 3) return;
+  const int limb = blockIdx.x & 3, k = blockIdx.x >> 2;
+  const int pj = blockIdx.y, r = blockIdx.z;
+  const int tid = threadIdx.x;
 
-  for (int j = threadIdx.x; j < 2 * kT; j += blockDim.x) {
-    uint32_t sum = 0u;
-    for (int d = 0; d < 32; ++d) {
-      if (!((mask >> d) & 1u)) continue;
-      const uint32_t idx = ((uint32_t)(d * kT - kT + j)) & n2_mask;
-      // sign-extended bytes, recombined mod 2^32
-      const uint32_t word = (uint32_t)(int32_t)src[idx] +
-                            ((uint32_t)(int32_t)src[plane + idx] << 8) +
-                            ((uint32_t)(int32_t)src[2 * plane + idx] << 16) +
-                            ((uint32_t)(int32_t)src[3 * plane + idx] << 24);
-      sum += word;
-    }
-    uint32_t cur = sum;
+  if (tid < 2 * kT / 4) {
+    uint32_t word;
+    if constexpr (Probe == 2) {
+      word = 0x01020304u * (uint32_t)(tid + limb);
+    } else {
+      const uint32_t n2_mask = 2u * (uint32_t)n - 1u;
+      const size_t plane = (size_t)p_rows * k1 * 2 * n;  // a limb's plane
+      const int8_t* src = limbs_step + ((size_t)pj * k1 + k) * 2 * n;
+      const uint32_t mask = (uint32_t)entry_masks[r];
+      uint32_t sum[4] = {0u, 0u, 0u, 0u};
+      for (uint32_t bits = mask; bits; bits &= bits - 1) {
+        const int d = __ffs(bits) - 1;
+        const uint32_t idx = ((uint32_t)(d * kT - kT + 4 * tid)) & n2_mask;
 #pragma unroll
-    for (int limb = 0; limb < 4; ++limb) {
-      const int32_t lo = (int32_t)((cur & 255u) ^ 128u) - 128;  // balanced
-      cl[limb][j] = (int8_t)lo;
-      // cur - lo is a multiple of 256; the shift is arithmetic
-      cur = (uint32_t)((int32_t)(cur - (uint32_t)lo) >> 8);
+        for (int pl = 0; pl < 4; ++pl) {
+          const uint32_t x =
+              *reinterpret_cast<const uint32_t*>(src + pl * plane + idx);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)  // sign-extended bytes, mod 2^32
+            sum[e] += (uint32_t)(int32_t)(int8_t)(x >> (8 * e)) << (8 * pl);
+        }
+      }
+      word = 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t cur = sum[e];
+        for (int x = 0; x < limb; ++x) {  // drop the lower balanced limbs
+          const int32_t lo = (int32_t)((cur & 255u) ^ 128u) - 128;
+          cur = (uint32_t)((int32_t)(cur - (uint32_t)lo) >> 8);
+        }
+        word |= (cur & 255u) << (8 * e);  // the balanced byte's bits
+      }
     }
+    if (KMajor)
+      cw[2 * kT / 4 - 1 - tid] = __byte_perm(word, 0u, 0x0123);
+    else
+      cw[tid] = word;
+  } else if (tid < 2 * kT / 4 + 4) {
+    cw[tid] = 0u;  // read (shifted out) by the last line's fifth word
   }
   __syncthreads();
-
-  // W[u, w] = C[T + w - u]: 4 bytes per thread, along w (reference) or
-  // along u (K-major)
-  const size_t row0 = ((size_t)r * p_rows + pj) * kT;  // the block's first row
-  const size_t rows = (size_t)gridDim.x * p_rows * kT;
-  for (int x = threadIdx.x; x < kT * 4 * (kT / 4); x += blockDim.x) {
-    const int q = (x % (kT / 4)) * 4;  // 4 consecutive w, or u
-    const int limb = (x / (kT / 4)) % 4;
-    const int o = x / kT;              // the other index: u, or w
-    uint32_t word = 0u;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = KMajor ? kT + o - (q + e) : kT + (q + e) - o;
-      word |= (uint32_t)(uint8_t)cl[limb][c] << (8 * e);
-    }
-    int8_t* dst;
-    if (KMajor)  // [k][limb][w = o][row0 + u]
-      dst = out + (((size_t)k * 4 + limb) * kT + o) * rows + row0 + q;
-    else  // [row0 + u = o][k][limb][w]
-      dst = out + (row0 + o) * (k1 * 4 * kT) + (size_t)k * 4 * kT +
-            limb * kT + q;
-    *reinterpret_cast<uint32_t*>(dst) = word;
+  if constexpr (Probe == 1) {
+    if (cw[tid & 63] == 0x9E3779B9u) out[tid] = 1;  // keeps the sums live
+    return;
   }
+
+  const size_t rows = (size_t)gridDim.z * p_rows * kT;  // R*P*T
+  const size_t row0 = ((size_t)r * p_rows + pj) * kT;   // the unit's first
+#pragma unroll
+  for (int i = 0; i < kT * kT / 16 / kExpandThreads; ++i) {
+    const int x = tid + i * kExpandThreads;
+    const int line = x >> 3, v = x & 7;  // 8 stores of 16 bytes a line
+    const int start = (KMajor ? kT - 1 - line : kT - line) + 16 * v;
+    const uint32_t* src = cw + (start >> 2);
+    const uint32_t sh = 8u * (uint32_t)(start & 3);
+    uint4 o;
+    o.x = __funnelshift_r(src[0], src[1], sh);
+    o.y = __funnelshift_r(src[1], src[2], sh);
+    o.z = __funnelshift_r(src[2], src[3], sh);
+    o.w = __funnelshift_r(src[3], src[4], sh);
+    int8_t* dst;
+    if (KMajor)  // [k][limb][w = line][row0 + u]
+      dst = out + (((size_t)k * 4 + limb) * kT + line) * rows + row0 + 16 * v;
+    else  // [row0 + u = line][k][limb][w]
+      dst = out + (row0 + line) * ((size_t)k1 * 4 * kT) +
+            ((size_t)k * 4 + limb) * kT + 16 * v;
+    *reinterpret_cast<uint4*>(dst) = o;
+  }
+}
+
+template <int Probe>
+inline cudaError_t launch_expand_probe(const int8_t* limbs_step,
+                                       const int32_t* entry_masks,
+                                       int8_t* out, int total_rows,
+                                       int p_rows, int k1, int n, bool kmajor,
+                                       cudaStream_t st) {
+  const dim3 grid(4 * k1, p_rows, total_rows);
+  if (kmajor)
+    expand_kernel<true, Probe><<<grid, kExpandThreads, 0, st>>>(
+        limbs_step, entry_masks, out, p_rows, k1, n);
+  else
+    expand_kernel<false, Probe><<<grid, kExpandThreads, 0, st>>>(
+        limbs_step, entry_masks, out, p_rows, k1, n);
+  return cudaGetLastError();
 }
 
 inline cudaError_t launch_expand(const int8_t* limbs_step,
                                  const int32_t* entry_masks, int8_t* out,
                                  int total_rows, int p_rows, int k1, int n,
                                  bool kmajor, cudaStream_t st) {
-  const dim3 grid(total_rows, p_rows, k1);
-  if (kmajor)
-    expand_kernel<true><<<grid, kThreads, 0, st>>>(limbs_step, entry_masks,
-                                                   out, p_rows, k1, n);
-  else
-    expand_kernel<false><<<grid, kThreads, 0, st>>>(limbs_step, entry_masks,
-                                                    out, p_rows, k1, n);
-  return cudaGetLastError();
+  return launch_expand_probe<0>(limbs_step, entry_masks, out, total_rows,
+                                p_rows, k1, n, kmajor, st);
 }
 
 // The rotate/decompose launches' shape: one block per ciphertext row, one

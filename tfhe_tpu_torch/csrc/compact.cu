@@ -7,8 +7,8 @@
 // What it computes. The key is int8[n, 4, P, K, 2N]: per step the four
 // balanced bytes of the doubled words [t, -t] of every key polynomial. For
 // each of the n steps:
-//   1. expand_kernel (cmux_kernels.cuh): rebuild the int32 doubled words
-//      from their 4 bytes;
+//   1. expand_kernel (cmux_kernels.cuh, one block per 16 KB limb of a
+//      Toeplitz block): rebuild the int32 doubled words from their 4 bytes;
 //      for each row r of the bake (per leaf, entries reversed) sum the
 //      2T-word windows of the row's blocks, window d starting at d*T - T
 //      (mod 2N, so block 0 wraps below zero), in uint32 with wraparound;
@@ -48,6 +48,28 @@ int tfhe_expand_step(const int8_t* limbs_step, const int32_t* entry_masks,
   return (int)launch_expand(limbs_step, entry_masks, out, total_rows, p_rows,
                             k1, n, kmajor != 0,
                             static_cast<cudaStream_t>(stream));
+}
+
+// The expansion's timing probes (expand_kernel's Probe: 1 the sums alone,
+// 2 the stores of a constant, 3 an empty grid); `out` holds nothing
+// meaningful after them. No path calls this.
+int tfhe_expand_probe(const int8_t* limbs_step, const int32_t* entry_masks,
+                      int8_t* out, int total_rows, int p_rows, int k1, int n,
+                      int kmajor, int probe, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool km = kmajor != 0;
+  switch (probe) {
+    case 1: return (int)launch_expand_probe<1>(limbs_step, entry_masks, out,
+                                               total_rows, p_rows, k1, n, km,
+                                               st);
+    case 2: return (int)launch_expand_probe<2>(limbs_step, entry_masks, out,
+                                               total_rows, p_rows, k1, n, km,
+                                               st);
+    case 3: return (int)launch_expand_probe<3>(limbs_step, entry_masks, out,
+                                               total_rows, p_rows, k1, n, km,
+                                               st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The whole rotation from the compact key: 3 launches per step on `stream`,

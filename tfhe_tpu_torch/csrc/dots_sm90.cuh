@@ -204,17 +204,37 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
 
 // --- the kernel body ---
 
-// One work item for one batch tile (see the file comment). `items` rows are
-// (k*4 + wt, first product, end product, atomic); `products` rows are
-// (a_off, b_off, npieces, chunks, shift, first target, end target, 0);
-// `targets` rows are (posm, sign). PolyKey: the key holds every output
-// poly and the item's k picks it (single-key); else the key has one poly
-// (multi-key, K = 1) and k only picks acc's column.
-template <bool PolyKey>
+// A dots launch's block runs one work item of one batch tile (the item
+// index blockIdx.x, the tile blockIdx.y). Other bodies hand dots_body a
+// policy of the same shape for their own units (fused_step.cu).
+struct OneItem {
+  const int32_t* items;
+  __device__ int count() const { return 1; }
+  __device__ const int32_t* item(int) const {
+    return items + (size_t)kItemInts * blockIdx.x;
+  }
+  __device__ int row0(int) const { return blockIdx.y * kDotRows; }
+  __device__ void wait(int) const {}  // the producer's wait for the A rows
+};
+
+// The block's units u < units.count(), each a work item (units.item(u))
+// of the batch tile from units.row0(u) on (see the file comment), one
+// after another through one ring. `items` rows are (k*4 + wt, first
+// product, end product, atomic); `products` rows are (a_off, b_off,
+// npieces, chunks, shift, first target, end target, 0); `targets` rows are
+// (posm, sign). PolyKey: the key holds every output poly and the item's k
+// picks it (single-key); else the key has one poly (multi-key, K = 1) and
+// k only picks acc's column. Fresh: every word of the unit's column tile,
+// all M output blocks, is written once to out = acc + sums (the fused
+// step: out is another buffer, and no other block owns the tile); else the
+// touched blocks' sums are added into acc in place (out == acc), with
+// atomics for a cut column. The producer calls units.wait(u) before it
+// loads unit u's first tiles.
+template <bool PolyKey, bool Fresh, typename Units>
 __device__ __forceinline__ void dots_body(
     const CUtensorMap* a_map, const CUtensorMap* b_map,
-    int32_t* __restrict__ acc, const int32_t* __restrict__ products,
-    const int32_t* __restrict__ targets, const int32_t* __restrict__ items,
+    const int32_t* acc, int32_t* out, const int32_t* __restrict__ products,
+    const int32_t* __restrict__ targets, const Units& units,
     const DotsParams& p) {
   extern __shared__ __align__(1024) uint8_t dots_smem[];
   uint8_t* ring = dots_smem;  // stages x (A tile, B tile), 1024-aligned
@@ -223,13 +243,6 @@ __device__ __forceinline__ void dots_body(
   const uint32_t full0 = smem_u32(bars);
   const uint32_t empty0 = smem_u32(bars + p.stages);
   const uint32_t ring0 = smem_u32(ring);
-
-  const int32_t* item = items + (size_t)kItemInts * blockIdx.x;
-  const int col = item[0];
-  const int k = col >> 2, wt = col & 3;
-  const int p_begin = item[1], p_end = item[2];
-  const bool atomic = item[3] != 0;
-  const int row0 = blockIdx.y * kDotRows;
 
   if (threadIdx.x == 0) {
     if (ring0 & 1023u) __trap();  // the swizzle needs 1024-aligned slots
@@ -243,27 +256,34 @@ __device__ __forceinline__ void dots_body(
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp == 4) {  // producer: one thread issues every load
-    if (lane == 0) {
-      const int key_k = PolyKey ? k : 0;
+  if (warp >= 4) {  // producer: one thread issues every load; warps past
+                    // it (a fused block's phase-1 helpers) leave
+    if (warp == 4 && lane == 0) {
       int slot = 0;
       uint32_t phase = 0;
-      for (int pi = p_begin; pi < p_end; ++pi) {
-        const int32_t* pr = products + (size_t)kProductInts * pi;
-        for (int i = 0; i < pr[2]; ++i) {
-          const int a0 = pr[0] + i * p.a_stride;
-          const int b0 = pr[1] + i * p.b_stride;
-          for (int c = 0; c < pr[3]; ++c) {
-            mbar_wait(empty0 + 8 * slot, phase ^ 1u);
-            const uint32_t full = full0 + 8 * slot;
-            const uint32_t a_dst = ring0 + slot * kSlotBytes;
-            mbar_arrive_expect_tx(full, kSlotBytes);
-            tma_load_2d(a_dst, a_map, full, a0 + c * kChunk, row0);
-            tma_load_5d(a_dst + kATile, b_map, full, b0 + c * kChunk,
-                        wt * kDotW, 0, key_k, p.step);
-            if (++slot == p.stages) {
-              slot = 0;
-              phase ^= 1u;
+      for (int u = 0; u < units.count(); ++u) {
+        const int32_t* item = units.item(u);
+        const int row0 = units.row0(u);
+        const int key_k = PolyKey ? item[0] >> 2 : 0;
+        const int wt = item[0] & 3;
+        units.wait(u);
+        for (int pi = item[1]; pi < item[2]; ++pi) {
+          const int32_t* pr = products + (size_t)kProductInts * pi;
+          for (int i = 0; i < pr[2]; ++i) {
+            const int a0 = pr[0] + i * p.a_stride;
+            const int b0 = pr[1] + i * p.b_stride;
+            for (int c = 0; c < pr[3]; ++c) {
+              mbar_wait(empty0 + 8 * slot, phase ^ 1u);
+              const uint32_t full = full0 + 8 * slot;
+              const uint32_t a_dst = ring0 + slot * kSlotBytes;
+              mbar_arrive_expect_tx(full, kSlotBytes);
+              tma_load_2d(a_dst, a_map, full, a0 + c * kChunk, row0);
+              tma_load_5d(a_dst + kATile, b_map, full, b0 + c * kChunk,
+                          wt * kDotW, 0, key_k, p.step);
+              if (++slot == p.stages) {
+                slot = 0;
+                phase ^= 1u;
+              }
             }
           }
         }
@@ -272,89 +292,97 @@ __device__ __forceinline__ void dots_body(
     return;
   }
 
-  // consumer warpgroup: threads 0-127
+  // consumer warpgroup: threads 0-127; each owns one column of `sums`, so
+  // an item's sums need no barrier between items
   const int tid = threadIdx.x;
-  for (int x = 0; x < p.m * 16; ++x) sums[x * 128 + tid] = 0u;
-  uint32_t touched = 0u;
   int slot = 0;
   uint32_t phase = 0;
   int d[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) d[i] = 0;
-  for (int pi = p_begin; pi < p_end; ++pi) {
-    const int32_t* pr = products + (size_t)kProductInts * pi;
-    const int n_slots = pr[2] * pr[3];
-    int prev = -1;
-    for (int c = 0; c < n_slots; ++c) {
-      mbar_wait(full0 + 8 * slot, phase);
-      const uint32_t a_addr = ring0 + slot * kSlotBytes;
-      const uint64_t da = kmajor_sw128_desc(a_addr);
-      const uint64_t db = kmajor_sw128_desc(a_addr + kATile);
-      wgmma_fence();
+  for (int u = 0; u < units.count(); ++u) {
+    const int32_t* item = units.item(u);
+    const int row0 = units.row0(u);
+    const int k = item[0] >> 2, wt = item[0] & 3;
+    const bool atomic = item[3] != 0;
+    for (int x = 0; x < p.m * 16; ++x) sums[x * 128 + tid] = 0u;
+    uint32_t touched = 0u;
+    for (int pi = item[1]; pi < item[2]; ++pi) {
+      const int32_t* pr = products + (size_t)kProductInts * pi;
+      const int n_slots = pr[2] * pr[3];
+      int prev = -1;
+      for (int c = 0; c < n_slots; ++c) {
+        mbar_wait(full0 + 8 * slot, phase);
+        const uint32_t a_addr = ring0 + slot * kSlotBytes;
+        const uint64_t da = kmajor_sw128_desc(a_addr);
+        const uint64_t db = kmajor_sw128_desc(a_addr + kATile);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kChunk / 32; ++kk)
-        wgmma_m64n128k32_s8(d, da + 2 * kk, db + 2 * kk,
-                            (c == 0 && kk == 0) ? 0 : 1);
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous slot's products are done
-      if (prev >= 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
-      prev = slot;
-      if (++slot == p.stages) {
-        slot = 0;
-        phase ^= 1u;
+        for (int kk = 0; kk < kChunk / 32; ++kk)
+          wgmma_m64n128k32_s8(d, da + 2 * kk, db + 2 * kk,
+                              (c == 0 && kk == 0) ? 0 : 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous slot's products are done
+        if (prev >= 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
+        prev = slot;
+        if (++slot == p.stages) {
+          slot = 0;
+          phase ^= 1u;
+        }
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+
+      // limb recombination in registers: words[(h*4 + j)*2 + e]
+      uint32_t words[16];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            uint32_t w = 0u;
+#pragma unroll
+            for (int limb = 0; limb < 4; ++limb)
+              w += (uint32_t)d[(limb * 4 + j) * 4 + 2 * h + e] << (8 * limb);
+            words[(h * 4 + j) * 2 + e] = w << pr[4];
+          }
+      for (int ti = pr[5]; ti < pr[6]; ++ti) {
+        const int posm = targets[2 * ti];
+        const uint32_t sign = (uint32_t)targets[2 * ti + 1];
+        touched |= 1u << posm;
+        uint32_t* s = sums + (size_t)posm * 16 * 128 + tid;
+#pragma unroll
+        for (int x = 0; x < 16; ++x) s[x * 128] += sign * words[x];
       }
     }
-    wgmma_wait<0>();
-    if (lane == 0) mbar_arrive(empty0 + 8 * prev);
 
-    // limb recombination in registers: words[(h*4 + j)*2 + e]
-    uint32_t words[16];
+    // each sum into acc (or out) once: rows past the batch are never
+    // written
+    const int r_base = row0 + warp * 16 + lane / 4;
+    const int w_base = wt * kDotW + 2 * (lane % 4);
+    for (int posm = 0; posm < p.m; ++posm) {
+      if (!Fresh && !((touched >> posm) & 1u)) continue;
+      const uint32_t* s = sums + (size_t)posm * 16 * 128 + tid;
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < 2; ++h) {
+        const int row = r_base + 8 * h;
+        if (row >= p.batch) continue;
+        const size_t at0 = ((size_t)row * p.k1 + k) * p.n + posm * 128;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          uint32_t w = 0u;
-#pragma unroll
-          for (int limb = 0; limb < 4; ++limb)
-            w += (uint32_t)d[(limb * 4 + j) * 4 + 2 * h + e] << (8 * limb);
-          words[(h * 4 + j) * 2 + e] = w << pr[4];
-        }
-    for (int ti = pr[5]; ti < pr[6]; ++ti) {
-      const int posm = targets[2 * ti];
-      const uint32_t sign = (uint32_t)targets[2 * ti + 1];
-      touched |= 1u << posm;
-      uint32_t* s = sums + (size_t)posm * 16 * 128 + tid;
-#pragma unroll
-      for (int x = 0; x < 16; ++x) s[x * 128] += sign * words[x];
-    }
-  }
-
-  // each sum into acc once: rows past the batch are never written
-  const int r_base = row0 + warp * 16 + lane / 4;
-  const int w_base = wt * kDotW + 2 * (lane % 4);
-  for (int posm = 0; posm < p.m; ++posm) {
-    if (!((touched >> posm) & 1u)) continue;
-    const uint32_t* s = sums + (size_t)posm * 16 * 128 + tid;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r_base + 8 * h;
-      if (row >= p.batch) continue;
-      int32_t* dst_row = acc + ((size_t)row * p.k1 + k) * p.n + posm * 128;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        int32_t* dst = dst_row + w_base + j * 8;
-        const uint32_t w0 = s[((h * 4 + j) * 2 + 0) * 128];
-        const uint32_t w1 = s[((h * 4 + j) * 2 + 1) * 128];
-        if (atomic) {
-          atomicAdd(reinterpret_cast<unsigned int*>(dst), w0);
-          atomicAdd(reinterpret_cast<unsigned int*>(dst + 1), w1);
-        } else {
-          uint2 v = *reinterpret_cast<uint2*>(dst);
-          v.x += w0;
-          v.y += w1;
-          *reinterpret_cast<uint2*>(dst) = v;
+        for (int j = 0; j < 4; ++j) {
+          const size_t at = at0 + w_base + j * 8;
+          const uint32_t w0 = s[((h * 4 + j) * 2 + 0) * 128];
+          const uint32_t w1 = s[((h * 4 + j) * 2 + 1) * 128];
+          if (!Fresh && atomic) {
+            atomicAdd(reinterpret_cast<unsigned int*>(out + at), w0);
+            atomicAdd(reinterpret_cast<unsigned int*>(out + at + 1), w1);
+          } else {
+            uint2 v = *reinterpret_cast<const uint2*>(acc + at);
+            v.x += w0;
+            v.y += w1;
+            *reinterpret_cast<uint2*>(out + at) = v;
+          }
         }
       }
     }

@@ -3,320 +3,305 @@
 // Replaces the TPU kernel tfhe_tpu/ops/pallas_cmux.py:
 //   _fused_karatsuba_kernel (entry cmux_step_pallas_karatsuba).
 //
-// What it computes (acc int32[B, K, N], e_step int8[R*P*T, K*4*T] a step of
-// the Karatsuba-baked key in the reference layout, not the K-major layout
-// the whole-rotation kernels read, bara int32[B] -> out int32[B, K, N]; acc is not
-// modified), the seven steps of blind_rotate.cu for a single step:
-//   1. rotate acc by X^bara;  2. subtract acc, add the decomposition
-//   offset;  3. cut l signed b-bit digits;  4. form the Karatsuba digit
-//   combos;  5. leaf dots against the key rows (int8 mma.sync, int32);
-//   6. recombine the four key limbs;  7. fold with the z^M = -1 sign and
-//   add acc.
-// Unlike tfhe_blind_rotate at n_steps = 1 (two launches, with the digit
-// operand written to and read back from device memory) the digits never
-// leave the SM.
+// What it computes (acc int32[B, K, N]; key_step int8[K, 4, T, R*P*T], one
+// step of the Karatsuba-baked key in the K-major layout every baked key has
+// on the card (ops/dots.py:to_kmajor); bara int32[B] -> out int32[B, K, N],
+// acc not modified): out = acc + key_step (x) [(X^bara - 1) * acc], the
+// seven steps of blind_rotate.cu for a single step. It is built from the
+// two bodies the whole-rotation kernels run, inside one launch:
+//   phase 1, the rotate/decompose front half (cmux_kernels.cuh:
+//     rotate_items + store_digits): rotate, subtract, add the offset, cut l
+//     digits, form the Karatsuba combos, written as digit rows into `lhs`,
+//     a scratch buffer of B x lhs_rows*P*T bytes;
+//   phase 2, the dots body (dots_sm90.cuh:dots_body, Fresh): wgmma
+//     m64n128k32 s8 over TMA tiles of those digit rows and of the K-major
+//     key step, each distinct product once, limb recombination, the
+//     z^M = -1 fold, and out = acc + sums.
 //
-// Who owns what. One block owns kFM = 16 batch rows for the whole step.
-//   Phase A: the block rotates and decomposes its rows into shared memory:
-//     raw digits only, M*P*T per row (int8, or int16 for b > 8).
-//   __syncthreads().
-//   Phase B: the block loops over its K*M output groups (output polynomial
-//     k, output block posm), T = 128 coefficients x 4 key limbs = 512 key
-//     columns each, and runs the group's terms from the plan's table
-//     (ops/blind_rotate.py:kernel_tables): sign * 2^shift * (digit segments
-//     . key segments). Each of the 8 warps owns 16 coefficients of the
-//     group for all 4 limbs, so the limb recombination happens in
-//     registers (the mma.sync fragment layout). The group's words are
-//     added to acc's and written to `out`: a separate buffer, because a
-//     row's rotation reads the whole input row, and other blocks never
-//     touch this block's rows, so no atomics.
+// Who owns what. The grid is persistent: as many blocks as the card holds
+// at once (2 an SM up to M = 4, 1 at M = 8), launched cooperatively so
+// that all of them are resident; a block is the dots' 5 warps and more for
+// phase 1 (fused_threads). Phase 1: the batch is cut into groups of
+// kGroupRows = 16 rows (a quarter of a 64-row batch tile); block i forms
+// groups i, i + G, ... and after each one adds 1 to its tile's counter in
+// `ready` (int32[tiles], zeroed before the launch). Phase 2: the units are
+// the (batch tile, column tile) pairs, column tile = (poly k, 32
+// coefficients, all four limbs), tiles x K*4 of them (1,280 at 128_fast,
+// B = 4096); block i runs units i, i + G, ..., each over every product,
+// and writes each word of the unit's tile once (no atomics). Before a
+// unit's first TMA load the producer waits until its tile's counter holds
+// all the tile's groups. Each digit is formed once, and the digit rows stay
+// in L2 between the phases.
 //
-// Combos. A 16-row tile of raw digits fits shared memory at every
-// single-key preset (at most 131,072 bytes: N = 1024, l = 4 or b = 10); the
-// combo rows would triple that. So a combo segment is formed while the A
-// tile is staged: the segment table (ops/fused_step.py:fused_tables) gives
-// for each digit segment the mask of raw blocks to sum and which limb of
-// the sum to take (the sum as it is, its low 7-bit limb, or its high limb
-// at shift 7). A raw segment is the case of a one-block mask.
+// Why this design (measured on an NVIDIA H100 80GB HBM3, 700 W; PERF.md,
+// PR 7): a first design gave each 64-row batch tile a thread-block
+// cluster of 4 blocks (rows and column tiles shared among the members, a
+// cluster barrier between the phases). The card held fewer such clusters
+// at once than the 64 tiles of B = 4096, so the tiles ran in two waves up
+// to M = 4 and three at M = 8, slower than the two-launch step. The units
+// of the persistent grid spread over one wave within 3% (1,280 units on
+// 264 blocks at 128_fast, 512 on 132 at N = 1024). Digits of a 64-row
+// tile do not fit one SM's shared memory beyond 128_fast (160 KB of raw
+// digits at 128_fast, 512 KB at the 80-bit preset, against 227 KB), and
+// forming A tiles from acc for each chunk would re-read 64 KB or more of
+// acc per 16 KB key tile.
 //
-// What bounds it on the H100: int8 tensor-core work, as blind_rotate.cu.
-// What this design costs: every block streams the step's whole key slice
-// from L2 (B/16 blocks; 256 at B = 4096 on 132 SMs, under two full waves),
-// one block of 8 warps per SM, staging without cp.async, and a combo
-// segment is summed again for every term that reads it. A step of the
-// whole-rotation kernel is faster; this entry point exists for callers
-// that hold one step's key slice.
+// Hazards, and what the code does about them:
+// * The digit rows are stored by the generic proxy and read by TMA, the
+//   async proxy of other blocks: every writing thread issues
+//   fence.proxy.async.global and __threadfence() after its stores, the
+//   block barrier gathers them, and one thread then adds to the tile's
+//   counter; the producer reads the counter with ld.acquire.gpu and fences
+//   the proxies again before its TMA loads.
+// * Blocks wait on each other, so all must be resident: the launch is
+//   cooperative (cudaLaunchKernelEx with the cooperative attribute fails
+//   rather than oversubscribe), sized by the occupancy query.
+// * Rows past the batch are never formed and never written: the digit
+//   map's outer extent is the batch, so TMA reads zeros for them.
+// * out is a new buffer and acc is only read: a row's rotation reads the
+//   whole input row, and the dots' epilogue reads acc beside its sums.
+// * Phase 1 stages rows in the shared memory the ring and the sums use
+//   later; the block barrier after phase 1 and the mbarrier initialisation
+//   with its proxy fence (in dots_body) separate the two uses.
+//
+// What bounds it on the H100: int8 tensor-core work, as blind_rotate.cu,
+// plus phase 1, which the dots do not hide: every block forms its groups
+// before it runs a unit.
 
 #include "cmux_kernels.cuh"
 
 namespace {
 
-constexpr int kKC = 64;         // contraction chunk staged in shared memory
-constexpr int kLDS = kKC + 16;  // padded smem row: conflict-free fragments
+constexpr int kGroupRows = 16;  // rows a block forms at once
+constexpr int kTileGroups = kDotRows / kGroupRows;  // groups of a tile
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+// A block's threads: the dots' consumer warpgroup and producer warp, and
+// more warps for phase 1 (they leave when phase 2 starts), as many as the
+// registers of the blocks an SM holds allow: 2 blocks of 7 warps (146
+// registers a thread) up to M = 4, 1 block of 12 warps (170) at M = 8.
+template <int M>
+constexpr int fused_threads() {
+  return M >= 8 ? 384 : 224;
+}
+template <int M>
+constexpr int fused_blocks_per_sm() {
+  return M >= 8 ? 1 : 2;
 }
 
-// Stages kKC rows of the key, from key_row on, by 4 * W columns into Bs,
-// transposed (column-major for the mma B operand) by 4x4 byte transposes.
-// The tile's column for (limb, w), w < W, is key_col0 + limb * kT + w. The
-// key step is in the reference layout int8[R*P*T, K*4*T].
-template <int W>
-__device__ __forceinline__ void stage_key_tile(
-    int8_t* Bs, const int8_t* __restrict__ key, int key_cols, int key_row,
-    int key_col0) {
-  for (int q = threadIdx.x; q < (kKC / 4) * W; q += kThreads) {
-    const int ng = (q % 8) + 8 * ((q / 32) % (W / 8));
-    const int kg = ((q / 8) % 4) + 4 * (q / (4 * W));
-    const int n0 = ng * 4;
-    const int limb = n0 / W;
-    const int w = n0 - limb * W;
-    const size_t col = (size_t)key_col0 + limb * kT + w;
-    const int8_t* src = key + (size_t)(key_row + kg * 4) * key_cols + col;
-    const uint32_t r0 = *reinterpret_cast<const uint32_t*>(src);
-    const uint32_t r1 = *reinterpret_cast<const uint32_t*>(src + key_cols);
-    const uint32_t r2 =
-        *reinterpret_cast<const uint32_t*>(src + 2 * (size_t)key_cols);
-    const uint32_t r3 =
-        *reinterpret_cast<const uint32_t*>(src + 3 * (size_t)key_cols);
-    const uint32_t lo01 = __byte_perm(r0, r1, 0x5140);
-    const uint32_t hi01 = __byte_perm(r0, r1, 0x7362);
-    const uint32_t lo23 = __byte_perm(r2, r3, 0x5140);
-    const uint32_t hi23 = __byte_perm(r2, r3, 0x7362);
-    int8_t* dst = Bs + n0 * kLDS + kg * 4;
-    *reinterpret_cast<uint32_t*>(dst) = __byte_perm(lo01, lo23, 0x5410);
-    *reinterpret_cast<uint32_t*>(dst + kLDS) = __byte_perm(lo01, lo23, 0x7632);
-    *reinterpret_cast<uint32_t*>(dst + 2 * kLDS) =
-        __byte_perm(hi01, hi23, 0x5410);
-    *reinterpret_cast<uint32_t*>(dst + 3 * kLDS) =
-        __byte_perm(hi01, hi23, 0x7632);
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Phase 2's units for dots_body: (batch tile, column tile) pairs, units
+// first, first + stride, ... < total, column tile fastest.
+struct FusedUnits {
+  const int32_t* items;  // one row per column tile: (k*4 + wt, 0, n, 0)
+  const int* ready;      // per batch tile, the groups formed so far
+  int n_cols, first, stride, total, batch;
+  bool wait_ready;
+  __device__ int count() const {
+    return first < total ? (total - first + stride - 1) / stride : 0;
   }
-}
-
-// part += the warp's 16 staged digit rows (from a_rows on) . the staged key
-// tile, over one kKC chunk. Fragment layout of part: [limb * 2 + half][mma
-// register], the warp's 16 coefficients being wcol .. wcol + 15 of the W
-// that the tile holds for each limb.
-template <int W>
-__device__ __forceinline__ void mma_chunk(int (&part)[8][4],
-                                          const int8_t* a_rows,
-                                          const int8_t* Bs, int wcol) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < kKC; kk += 32) {
-    const int8_t* ap = a_rows + g * kLDS + kk + tig * 4;
-    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(ap);
-    const uint32_t a1 = *reinterpret_cast<const uint32_t*>(ap + 8 * kLDS);
-    const uint32_t a2 = *reinterpret_cast<const uint32_t*>(ap + 16);
-    const uint32_t a3 = *reinterpret_cast<const uint32_t*>(ap + 8 * kLDS + 16);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int ncol = (nt >> 1) * W + wcol + (nt & 1) * 8 + g;
-      const int8_t* bp = Bs + ncol * kLDS + kk + tig * 4;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bp);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bp + 16);
-      mma_s8(part[nt], a0, a1, a2, a3, b0, b1);
-    }
+  __device__ const int32_t* item(int u) const {
+    return items + (size_t)kItemInts * ((first + u * stride) % n_cols);
   }
-}
+  __device__ int row0(int u) const {
+    return (first + u * stride) / n_cols * kDotRows;
+  }
+  __device__ void wait(int u) const {
+    if (!wait_ready) return;
+    const int tile = (first + u * stride) / n_cols;
+    const int rows = min(kDotRows, batch - tile * kDotRows);
+    const int groups = (rows + kGroupRows - 1) / kGroupRows;
+    while (load_acquire(ready + tile) < groups) __nanosleep(128);
+    fence_proxy_async_global();  // the rows, before this thread's TMA reads
+  }
+};
 
-__device__ __forceinline__ void clear_part(int (&part)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) part[i][r] = 0;
-}
+// One launch of G resident blocks (G = gridDim.x). stage_rows is the
+// number of rows phase 1 stages at a time (at least 1). probe (timing
+// only, never on a path; chip_smoke.py --rows-against): 0 = the step, 1 =
+// phase 1 alone, 2 = phase 2 alone (on whatever lhs holds).
+template <int M, bool Wide>
+__global__ void
+__launch_bounds__(fused_threads<M>(), fused_blocks_per_sm<M>())
+fused_step_kernel(const __grid_constant__ CUtensorMap a_map,
+                  const __grid_constant__ CUtensorMap b_map,
+                  const int32_t* __restrict__ acc,
+                  const int32_t* __restrict__ bara, int8_t* lhs,
+                  int32_t* __restrict__ out,
+                  const int32_t* __restrict__ products,
+                  const int32_t* __restrict__ targets,
+                  const int32_t* __restrict__ items, int n_cols,
+                  int stage_rows, int* ready, int probe,
+                  const __grid_constant__ Params p, const DotsParams dp) {
+  extern __shared__ __align__(1024) uint4 fused_smem[];
+  const int row16 = p.k1 * (M * kT / 4);
+  const int groups = probe == 2 ? 0 : (p.batch + kGroupRows - 1) / kGroupRows;
 
-// total += sign * (part << shift), mod 2^32.
-__device__ __forceinline__ void add_part(uint32_t (&total)[8][4],
-                                         const int (&part)[8][4], int shift,
-                                         int sign) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const uint32_t v = (uint32_t)part[i][r] << shift;
-      total[i][r] = sign > 0 ? total[i][r] + v : total[i][r] - v;
+  // phase 1: this block's groups of rows, as digit rows in lhs
+  for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+    const int last = min((g + 1) * kGroupRows, p.batch);
+    for (int r0 = g * kGroupRows; r0 < last; r0 += stage_rows) {
+      const int count = min(stage_rows, last - r0);
+      stage_acc_rows(acc, r0, count, row16, fused_smem);
+      __syncthreads();
+      rotate_items<M>(fused_smem, bara, r0, count, p,
+                      [&](int row, int j, int il, int lane, auto shifted) {
+                        store_digits<M, Wide>(p, lhs, row, j, il, lane,
+                                              shifted);
+                      });
+      __syncthreads();  // the staged rows are read before the next copy
     }
-}
-
-constexpr int kFM = 16;            // batch rows per block: one mma m16 tile
-constexpr int kFN = 4 * kT;        // key columns per group: 4 limbs x T
-constexpr int kFAs = kFM * kLDS;   // staged digit tile, bytes
-constexpr int kFBs = kFN * kLDS;   // staged key tile (transposed), bytes
-
-// part += digits[kFM rows, segment run] . key[key_row0 : +width, key_col0 :
-// +kFN]. The digit operand is formed from the raw digits in shared memory
-// through the segment table; seg0 is the run's first segment.
-template <typename Dig>
-__device__ __forceinline__ void fused_tile_dot(
-    int (&part)[8][4], int8_t* As, int8_t* Bs, const Dig* dig, int dig_stride,
-    const int32_t* __restrict__ seg_table, int seg0, int pt, int m,
-    const int8_t* __restrict__ key, int key_cols, int key_row0, int key_col0,
-    int width) {
-  const int tid = threadIdx.x;
-  for (int kc = 0; kc < width; kc += kKC) {
-    {  // digit tile: kFM rows x kKC bytes, 4 bytes per thread; a chunk
-       // lies inside one segment (kKC divides P*T)
-      const int r = tid / 16, c4 = (tid % 16) * 4;
-      const int seg = seg0 + kc / pt;
-      const int x0 = kc % pt + c4;
-      const uint32_t mask = (uint32_t)seg_table[2 * seg];
-      const int mode = seg_table[2 * seg + 1];
-      const Dig* row = dig + (size_t)r * dig_stride + x0;
-      uint32_t packed = 0u;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int v = 0;
-        for (int blk = 0; blk < m; ++blk)
-          if ((mask >> blk) & 1u) v += row[blk * pt + e];
-        if (mode != 0) {
-          const int lo = ((v & 127) ^ 64) - 64;  // in [-64, 63]
-          v = mode == 1 ? lo : (v - lo) / 128;   // exact: v - lo = 128 * hi
-        }
-        packed |= (uint32_t)(uint8_t)(int8_t)v << (8 * e);
-      }
-      *reinterpret_cast<uint32_t*>(As + r * kLDS + c4) = packed;
-    }
-    stage_key_tile<kT>(Bs, key, key_cols, key_row0 + kc, key_col0);
+    fence_proxy_async_global();  // these generic stores, before TMA reads
+    __threadfence();
     __syncthreads();
-    // each warp: 16 coefficients of the group, all 4 limbs
-    mma_chunk<kT>(part, As, Bs, (tid / 32) * 16);
-    __syncthreads();
+    if (threadIdx.x == 0) atomicAdd(ready + g / kTileGroups, 1);
   }
+  if (probe == 1) return;
+
+  // phase 2: this block's units
+  const int tiles = (p.batch + kDotRows - 1) / kDotRows;
+  const FusedUnits units = {items, ready, n_cols, (int)blockIdx.x,
+                            (int)gridDim.x, tiles * n_cols, p.batch,
+                            probe == 0};
+  dots_body<true, true>(&a_map, &b_map, acc, out, products, targets, units,
+                        dp);
 }
 
-template <typename Dig>
-__global__ void __launch_bounds__(kThreads)
-fused_step_kernel(const int32_t* __restrict__ acc,
-                  const int32_t* __restrict__ bara,
-                  const int8_t* __restrict__ key_step,
-                  const int32_t* __restrict__ seg_table,
-                  const int32_t* __restrict__ terms,
-                  const int32_t* __restrict__ term_start,
-                  int32_t* __restrict__ out, Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* As = reinterpret_cast<int8_t*>(smem);
-  int8_t* Bs = As + kFAs;
-  Dig* dig = reinterpret_cast<Dig*>(Bs + kFBs);  // kFM rows x m * pt digits
-  const int n = p.n;
-  const int dig_stride = p.m * p.pt;
-  const int row0 = blockIdx.x * kFM;
+struct FusedArgs {
+  const int32_t *acc, *bara;
+  int8_t* lhs;
+  int32_t* out;
+  int* ready;
+  int n_cols, stage_rows, probe;
+  int* max_blocks;  // if not null: the resident blocks, and no launch
+};
 
-  // Phase A: rotate, subtract, decompose; rows past the batch hold zeros.
-  const uint32_t digit_mask = (1u << p.b) - 1u;
-  const int half = 1 << (p.b - 1);
-  for (int r = 0; r < kFM; ++r) {
-    Dig* drow = dig + (size_t)r * dig_stride;
-    const int row = row0 + r;
-    if (row >= p.batch) {
-      for (int x = threadIdx.x; x < dig_stride; x += blockDim.x)
-        drow[x] = (Dig)0;
-      continue;
+template <int M>
+struct FusedStep {
+  static cudaError_t run(const Params& p, const DotsLaunch& d,
+                         const FusedArgs& a, cudaStream_t st) {
+    auto kernel = p.b > 8 ? fused_step_kernel<M, true>
+                          : fused_step_kernel<M, false>;
+    const size_t staged = (size_t)a.stage_rows * p.k1 * p.n * 4;
+    const size_t smem = staged > d.smem ? staged : d.smem;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0, dev = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, fused_threads<M>(), smem);
+    if (err != cudaSuccess) return err;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (a.max_blocks) {
+      *a.max_blocks = per_sm * sms;
+      return cudaSuccess;
     }
-    const uint32_t s = (uint32_t)bara[row] & (2u * (uint32_t)n - 1u);
-    const int32_t* a = acc + (size_t)row * p.k1 * n;
-    for (int idx = threadIdx.x; idx < p.k1 * n; idx += blockDim.x) {
-      const int j = idx / n;
-      const int c = idx - j * n;
-      const uint32_t shifted =
-          rotated_minus_acc(a + (size_t)j * n, n, c, s, (uint32_t)p.offset);
-      const int i = c / kT;
-      const int u = c - i * kT;
-      Dig* dst = drow + (size_t)i * p.pt + (size_t)j * p.l * kT + u;
-      for (int il = 0; il < p.l; ++il) {
-        const uint32_t d = (shifted >> (32 - (il + 1) * p.b)) & digit_mask;
-        dst[il * kT] = (Dig)((int)d - half);
-      }
-    }
+    // as many blocks as phase 1's groups or phase 2's units need, at most
+    // what the card holds at once
+    const int tiles = (p.batch + kDotRows - 1) / kDotRows;
+    const int groups = (p.batch + kGroupRows - 1) / kGroupRows;
+    const int units = tiles * a.n_cols;
+    const int want = units > groups ? units : groups;
+    const int blocks = want < per_sm * sms ? want : per_sm * sms;
+    if (blocks < 1) return cudaErrorInvalidConfiguration;
+    err = cudaMemsetAsync(a.ready, 0, (size_t)tiles * sizeof(int), st);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks, 1, 1);
+    cfg.blockDim = dim3(fused_threads<M>(), 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, d.a_map, d.b_map, a.acc, a.bara,
+                             a.lhs, a.out, d.products, d.targets, d.items,
+                             a.n_cols, a.stage_rows, a.ready, a.probe, p,
+                             d.p);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
   }
-  __syncthreads();
+};
 
-  // Phase B: the block's K * M output groups.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  for (int k = 0; k < p.k1; ++k) {
-    for (int posm = 0; posm < p.m; ++posm) {
-      uint32_t total[8][4];  // [limb * 2 + half][fragment register]
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) total[i][r] = 0u;
-
-      for (int ti = term_start[posm]; ti < term_start[posm + 1]; ++ti) {
-        const int32_t* tm = terms + 6 * ti;
-        int part[8][4];
-        clear_part(part);
-        fused_tile_dot<Dig>(part, As, Bs, dig, dig_stride, seg_table, tm[1],
-                            p.pt, p.m, key_step, p.cols, tm[2] * p.pt,
-                            k * kFN, tm[3] * p.pt);
-        add_part(total, part, tm[4], tm[5]);
-      }
-
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          uint32_t word = 0u;
-#pragma unroll
-          for (int limb = 0; limb < 4; ++limb)
-            word += total[limb * 2 + h][r] << (8 * limb);
-          const int row = row0 + g + (r >= 2 ? 8 : 0);
-          const int w = warp * 16 + h * 8 + tig * 2 + (r & 1);
-          if (row < p.batch) {
-            const size_t at = ((size_t)row * p.k1 + k) * n + posm * kT + w;
-            out[at] = (int32_t)((uint32_t)acc[at] + word);
-          }
-        }
-    }
-  }
-}
-
-template <typename Dig>
-cudaError_t launch_fused(const int32_t* acc, const int32_t* bara,
-                         const int8_t* key_step, const int32_t* seg_table,
-                         const int32_t* terms, const int32_t* term_start,
-                         int32_t* out, const Params& p, cudaStream_t st) {
-  const size_t smem =
-      (size_t)kFAs + kFBs + (size_t)kFM * p.m * p.pt * sizeof(Dig);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_step_kernel<Dig>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  fused_step_kernel<Dig><<<(p.batch + kFM - 1) / kFM, kThreads, smem, st>>>(
-      acc, bara, key_step, seg_table, terms, term_start, out, p);
-  return cudaGetLastError();
+// The step's launch; see tfhe_cmux_step_karatsuba.
+int fused_step(const int32_t* acc, const int8_t* key_step, const int32_t* bara,
+               int32_t* out, int8_t* lhs, int* ready, const int32_t* combos,
+               int n_combos, const int32_t* products, const int32_t* targets,
+               const int32_t* items, int n_items, int stages, int stage_rows,
+               int batch, int k1, int n, int l, int b, int m, int lhs_rows,
+               int total_rows, int offset, int probe, int* max_blocks,
+               cudaStream_t st) {
+  Params p;
+  cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
+                                combos, n_combos);
+  if (err != cudaSuccess) return (int)err;
+  if (n_items != k1 * 4 || stage_rows < 1) return (int)cudaErrorInvalidValue;
+  DotsLaunch dots;
+  err = make_dots(dots, lhs, p.lhs_stride, key_step, total_rows * p.pt, k1, 1,
+                  products, targets, items, n_items, stages, batch, k1, n, m,
+                  0, 0);
+  if (err != cudaSuccess) return (int)err;
+  const FusedArgs a = {acc, bara, lhs, out, ready, n_items, stage_rows,
+                       probe, max_blocks};
+  return (int)launch_by_m<FusedStep>(p, dots, a, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// One fused step in one launch on `stream`: out = acc + key_step (x)
-// [(X^bara - 1) * acc]. Returns the first CUDA error (0 = none); does not
-// synchronise.
+// One fused step in one launch on `stream` (after a memset of `ready`):
+// out = acc + key_step (x) [(X^bara - 1) * acc], key_step K-major
+// int8[K, 4, T, total_rows*P*T]. Scratch: lhs, batch x lhs_rows*P*T bytes;
+// ready, int32[ceil(batch / 64)]. combos: n_combos packed words in host
+// memory (Params). items: n_items rows (k*4 + wt, 0, n_products, 0), one
+// per column tile, n_items = K*4. stage_rows: the rows phase 1 stages at a
+// time. Returns the first CUDA error (0 = none); does not synchronise.
 int tfhe_cmux_step_karatsuba(const int32_t* acc, const int8_t* key_step,
-                             const int32_t* bara, int32_t* out,
-                             const int32_t* seg_table, const int32_t* terms,
-                             const int32_t* term_start, int batch, int k1,
-                             int n, int l, int b, int m, int lhs_rows,
+                             const int32_t* bara, int32_t* out, int8_t* lhs,
+                             int* ready, const int32_t* combos, int n_combos,
+                             const int32_t* products, const int32_t* targets,
+                             const int32_t* items, int n_items, int stages,
+                             int stage_rows, int batch, int k1, int n, int l,
+                             int b, int m, int lhs_rows, int total_rows,
                              int offset, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Params p;
-  make_params(p, batch, k1, n, l, b, m, lhs_rows, offset);
-  if (b > 8)
-    return (int)launch_fused<int16_t>(acc, bara, key_step, seg_table, terms,
-                                      term_start, out, p, st);
-  return (int)launch_fused<int8_t>(acc, bara, key_step, seg_table, terms,
-                                   term_start, out, p, st);
+  return fused_step(acc, key_step, bara, out, lhs, ready, combos, n_combos,
+                    products, targets, items, n_items, stages, stage_rows,
+                    batch, k1, n, l, b, m, lhs_rows, total_rows, offset, 0,
+                    nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// The same launch as a timing probe (fused_step_kernel's probe; out and
+// lhs hold nothing meaningful after 1 and 2), or with max_blocks not null
+// no launch: *max_blocks = the blocks the card holds at once. No path
+// calls this.
+int tfhe_cmux_step_karatsuba_probe(
+    const int32_t* acc, const int8_t* key_step, const int32_t* bara,
+    int32_t* out, int8_t* lhs, int* ready, const int32_t* combos,
+    int n_combos, const int32_t* products, const int32_t* targets,
+    const int32_t* items, int n_items, int stages, int stage_rows, int batch,
+    int k1, int n, int l, int b, int m, int lhs_rows, int total_rows,
+    int offset, int probe, int* max_blocks, void* stream) {
+  return fused_step(acc, key_step, bara, out, lhs, ready, combos, n_combos,
+                    products, targets, items, n_items, stages, stage_rows,
+                    batch, k1, n, l, b, m, lhs_rows, total_rows, offset,
+                    probe, max_blocks, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -18,6 +18,15 @@ _TWO32 = float(2**32)
 _TWO31 = float(2**31)
 
 
+def input_device(values, device=None):
+    """Where a helper puts `values`: `device` if given, else the device of
+    `values` when it is a tensor, else "cuda" (the port's entry points run
+    on the card unless the caller names the CPU)."""
+    if device is not None:
+        return device
+    return values.device if isinstance(values, torch.Tensor) else "cuda"
+
+
 def encode_message(mu: int, message_space: int) -> int:
     """Phase of integer message `mu` in a power-of-2 message space:
     mu << (32 - log2(ms)) as a wrapped int32 (a Python int)."""

@@ -126,10 +126,13 @@ def load() -> ctypes.CDLL:
         mk_head + [vp, vp] + mk_tables + [i32] * 11 + [vp])  # + scratch masks
     lib.tfhe_mk_blind_rotate_compact.restype = i32
     lib.tfhe_cmux_step_karatsuba.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp,  # acc key bara out seg_table terms start
-        i32, i32, i32, i32, i32, i32, i32, i32,  # sizes
-        vp,  # stream
-    ]
+        vp, vp, vp, vp, vp, vp, vp, i32,  # acc key bara out lhs ready combos n
+        vp, vp, vp, *[i32] * 12, vp]  # products targets items, sizes, stream
+    lib.tfhe_cmux_step_karatsuba_probe.argtypes = [
+        *lib.tfhe_cmux_step_karatsuba.argtypes[:-1], i32, vp, vp]
+    lib.tfhe_cmux_step_karatsuba_probe.restype = i32
+    lib.tfhe_expand_probe.argtypes = [vp, vp, vp, *[i32] * 6, vp]
+    lib.tfhe_expand_probe.restype = i32
     lib.tfhe_cmux_step_karatsuba.restype = i32
     lib.tfhe_error_string.argtypes = [i32]
     lib.tfhe_error_string.restype = ctypes.c_char_p

@@ -96,9 +96,8 @@ def kernel_plan(plan: KaratsubaPlan, p: int, t: int,
 
 def kernel_tables(plan: KaratsubaPlan, p: int, t: int):
     """The plan as int tables: the combo writes rotate_decompose_kernel
-    reads, and the plan's terms one per (product, output block), which the
-    fused step reads and `product_tables` groups by product for the dots
-    kernels.
+    reads, and the plan's terms one per (product, output block), which
+    `product_tables` groups by product for the dots kernels.
 
     The digit operand is one int8 row of `lhs_rows` segments of P*T bytes
     per ciphertext: segments [0, M) are the raw digit blocks, segment M + r

@@ -11,7 +11,8 @@ runs as in `ops/blind_rotate.py`.
   (`karatsuba.expand_karatsuba_step`, then `mux_rotate_karatsuba`). The CPU
   path and the oracle for the kernels.
 * `expand_step_kernel`: one step's expansion through the CUDA expansion
-  kernel (`csrc/compact.cu`), in the reference layout or K-major.
+  kernel (`csrc/compact.cu`), in the reference layout or K-major;
+  `expand_store_map` lists that kernel's stores, for the CPU tests.
 * `blind_rotate_compact_kernel`: the whole rotation in one C call: per
   step the expansion kernel writes a scratch operand, K-major
   (`dots.to_kmajor`'s layout), that the step's rotate/decompose and dots
@@ -53,6 +54,33 @@ def entry_masks(plan: KaratsubaPlan) -> list:
 @functools.lru_cache(maxsize=None)
 def _device_entry_masks(plan: KaratsubaPlan, device: str) -> torch.Tensor:
     return dots.int_table([entry_masks(plan)], device)
+
+
+def expand_store_map(total_rows: int, p_rows: int, k1: int, kmajor: bool,
+                     t: int = 128):
+    """The expansion kernel's work split and stores
+    (csrc/cmux_kernels.cuh:expand_kernel): one block per unit (bake row r,
+    key row pj, poly k, limb), in grid order, each storing T*T/16 lines of
+    16 bytes taken from the unit's 2T limb bytes as the block keeps them
+    (C forward for the reference layout, reversed for K-major). Returns
+    int64 tensors (units [n, 4] of (r, pj, k, limb), dst [n, T*T/16] the
+    byte offset of each store in the step's output, src [n, T*T/16] the
+    first of the 16 kept bytes it takes)."""
+    grid = torch.cartesian_prod(torch.arange(total_rows),
+                                torch.arange(p_rows), torch.arange(k1),
+                                torch.arange(4))
+    r, pj, k, limb = (grid[:, i:i + 1] for i in range(4))
+    x = torch.arange(t * t // 16)[None, :]
+    line, v = x >> 3, x & 7  # 8 stores a 128-byte line
+    row0 = (r * p_rows + pj) * t
+    if kmajor:  # [k][limb][w = line][row0 + u]
+        dst = ((k * 4 + limb) * t + line) * (total_rows * p_rows * t) \
+            + row0 + 16 * v
+        src = t - 1 - line + 16 * v
+    else:  # [row0 + u = line][k][limb][w]
+        dst = (row0 + line) * (k1 * 4 * t) + (k * 4 + limb) * t + 16 * v
+        src = t - line + 16 * v
+    return grid, dst, src.expand_as(dst)
 
 
 def expand_step_plain(limbs_step: torch.Tensor, *, t: int,
@@ -103,6 +131,27 @@ def expand_step_kernel(limbs_step: torch.Tensor, *, t: int,
 
 
 expand_step_kernel.launches = 0
+
+
+def expand_step_probe(limbs_step: torch.Tensor, *, t: int,
+                      plan: KaratsubaPlan, probe: int) -> None:
+    """Timing only, never on a path: the K-major expansion's launch as
+    probe 1 (the sums alone), 2 (the stores of a constant) or 3 (an empty
+    grid, the launch floor), into a scratch output. Takes what
+    `expand_step_kernel` takes, unchecked."""
+    from . import _build
+
+    lib = _build.load()
+    _, p, k1, n2 = limbs_step.shape
+    out = torch.empty((k1, 4, t, plan.total_rows * p * t), dtype=torch.int8,
+                      device=limbs_step.device)
+    stream = torch.cuda.current_stream(limbs_step.device).cuda_stream
+    err = lib.tfhe_expand_probe(
+        limbs_step.data_ptr(),
+        _device_entry_masks(plan, str(limbs_step.device)).data_ptr(),
+        out.data_ptr(), plan.total_rows, p, k1, n2 // 2, 1, probe,
+        ctypes.c_void_p(stream))
+    raise_on_error("expand_step_probe", lib, err)
 
 
 def expand_step(limbs_step: torch.Tensor, *, t: int,

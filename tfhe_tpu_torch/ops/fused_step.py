@@ -9,13 +9,21 @@ is an entry point of its own for callers that hold one step's key slice, as
 in the reference.
 
 * `cmux_step_karatsuba_plain`: `blind_rotate.mux_rotate_karatsuba` under the
-  reference entry's argument order. The CPU path and the kernel's oracle.
-* `cmux_step_karatsuba_kernel`: the CUDA wrapper (`csrc/fused_step.cu`); it
-  counts its launches in `.launches`. Where the reference picks a batch tile
-  that divides B (`_pick_tile`), the kernel has a fixed tile of `TILE_ROWS`
-  rows and masks the ragged last one.
+  reference entry's argument order, the step in the reference layout
+  int8[R*P*T, K*4*T]. The CPU path and the kernel's oracle.
+* `cmux_step_karatsuba_kernel`: the CUDA wrapper (`csrc/fused_step.cu`),
+  the step K-major int8[K, 4, T, R*P*T] (`key[s]` of a baked key on the
+  card, `dots.to_kmajor` of a reference step); it raises on the reference
+  layout and never converts. It counts its launches in `.launches`.
 * `cmux_step_karatsuba`: CPU tensors take the plain version; CUDA tensors
   launch the kernel or raise.
+
+The kernel runs a persistent grid of as many blocks as the card holds at
+once: each block first forms the digit rows of its groups of 16 rows (the
+rotate/decompose front half), then runs its (batch tile, column tile)
+units of the dots, each unit waiting until its tile's rows are formed
+(`fused_tables`, `block_groups` and `block_units` say who does what; a CPU
+test emulates it).
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ from ..tgsw import decomp_offset
 from . import dots
 from .blind_rotate import (
     check_rotation_geometry,
+    combo_table,
+    dots_tables,
     kernel_tables,
     mux_rotate_karatsuba,
     raise_on_error,
@@ -36,41 +46,67 @@ from .blind_rotate import (
 )
 from .karatsuba import KaratsubaPlan
 
-# The kernel's tile (csrc/fused_step.cu): rows of the batch per block, and
-# the bytes of shared memory its two staging tiles take beside the digits.
-TILE_ROWS = 16
-_STAGING_SMEM = (TILE_ROWS + 4 * 128) * (64 + 16)
-_MAX_SMEM = 227 * 1024  # what a block may opt in to on Hopper
+GROUP_ROWS = 16  # rows a block forms at once: a quarter of a batch tile
 
 
-def fused_tables(plan: KaratsubaPlan, p: int, t: int):
-    """The plan as the fused kernel's int tables. The kernel keeps only the
-    raw digit blocks in shared memory and forms every other digit segment
-    while it stages it, so `kernel_tables`' combo writes become a lookup by
-    segment. Returns (seg_table, terms, term_start, lhs_rows):
+def fused_tables(plan: KaratsubaPlan, k1: int, l: int, t: int):
+    """The fused kernel's tables: (combos, lhs_rows, tables, items).
 
-    * seg_table[seg] = (src_block_mask, mode) for each of the lhs_rows digit
-      segments: the segment is the sum of the masked raw blocks taken as it
-      is (mode 0), its low 7-bit limb (mode 1) or its high limb at shift 7
-      (mode 2). Raw segment i < M is (1 << i, 0); a segment no term reads
-      is (0, 0).
-    * terms, term_start, lhs_rows: as `kernel_tables` gives them.
+    * combos, lhs_rows: the digit rows the blocks form, as `kernel_tables`
+      gives them (`combo_table` packs them for the launch).
+    * tables: the dots' products, each distinct one once with its targets
+      (`blind_rotate.dots_tables`).
+    * items: one row (k*4 + wt, 0, n_products, 0) per column tile (poly k,
+      32 coefficients wt*32 .. wt*32 + 31, all four limbs), K*4 of them;
+      a unit is one column tile of one 64-row batch tile, over every
+      product (`block_units`).
     """
-    combos, terms, term_start, lhs_rows = kernel_tables(plan, p, t)
-    seg_table = [(1 << seg, 0) if seg < plan.m else (0, 0)
-                 for seg in range(lhs_rows)]
-    for dst, mask, two_limb, hi in combos:
-        seg_table[dst] = (mask, 1 if two_limb else 0)
-        if two_limb:
-            seg_table[hi] = (mask, 2)
-    return seg_table, terms, term_start, lhs_rows
+    combos, _, _, lhs_rows = kernel_tables(plan, k1 * l, t)
+    tables = dots_tables(plan, k1, l, t)
+    n_products = len(tables.products)
+    items = tuple((col, 0, n_products, 0) for col in range(k1 * 4))
+    return combos, lhs_rows, tables, items
+
+
+def grid_blocks(batch: int, n_cols: int, resident: int) -> int:
+    """The launch's blocks (csrc: FusedStep::run): as many as phase 1's
+    groups or phase 2's units need, at most the `resident` blocks the card
+    holds at once."""
+    tiles = -(-batch // dots.ROW_TILE)
+    return min(max(tiles * n_cols, -(-batch // GROUP_ROWS)), resident)
+
+
+def block_groups(batch: int, blocks: int, block: int) -> list:
+    """The rows whose digit rows block `block` of `blocks` forms, group by
+    group: groups block, block + blocks, ... of GROUP_ROWS rows; rows past
+    the batch are not formed (TMA reads them as zeros)."""
+    n_groups = -(-batch // GROUP_ROWS)
+    return [range(g * GROUP_ROWS, min((g + 1) * GROUP_ROWS, batch))
+            for g in range(block, n_groups, blocks)]
+
+
+def block_units(batch: int, n_cols: int, blocks: int, block: int) -> list:
+    """The units block `block` of `blocks` runs, in order: (batch tile,
+    column) for units block, block + blocks, ... of tiles x n_cols, the
+    column fastest."""
+    total = -(-batch // dots.ROW_TILE) * n_cols
+    return [divmod(u, n_cols) for u in range(block, total, blocks)]
+
+
+def stage_rows(k1: int, n: int, m: int) -> int:
+    """The accumulator rows phase 1 stages in shared memory at a time: as
+    many of a group's rows as fit the dots' shared memory, at least one."""
+    room = dots.smem_bytes(m, dots.ring_stages(m))
+    return max(1, min(GROUP_ROWS, room // (k1 * n * 4)))
 
 
 @functools.lru_cache(maxsize=None)
-def _device_tables(plan: KaratsubaPlan, p: int, t: int, device: str):
-    seg_table, terms, term_start, lhs_rows = fused_tables(plan, p, t)
-    return (dots.int_table(seg_table, device), dots.int_table(terms, device),
-            dots.int_table([term_start], device), lhs_rows)
+def _device_tables(plan: KaratsubaPlan, k1: int, l: int, t: int,
+                   device: str):
+    _, _, tables, items = fused_tables(plan, k1, l, t)
+    products, targets = dots.int_table(tables.products, device), \
+        dots.int_table(tables.targets, device)
+    return products, targets, dots.int_table(items, device), len(items)
 
 
 def cmux_step_karatsuba_plain(acc: torch.Tensor, e_step: torch.Tensor,
@@ -86,17 +122,23 @@ def cmux_step_karatsuba_kernel(acc: torch.Tensor, e_step: torch.Tensor,
                                bara: torch.Tensor, *, l: int, b: int, t: int,
                                plan: KaratsubaPlan,
                                balanced: bool) -> torch.Tensor:
-    """`cmux_step_karatsuba_plain` through the fused CUDA kernel: one launch
-    on the current stream, no synchronisation; `acc` is not modified."""
-    from . import _build
-
+    """`cmux_step_karatsuba_plain` through the fused CUDA kernel, with the
+    step K-major: e_step int8[K, 4, T, total_rows*P*T]. One launch on the
+    current stream (after a memset of the tiles' counters), no
+    synchronisation; `acc` is not modified. Besides the output it allocates
+    the digit rows' scratch, B x lhs_rows*P*T bytes (the two-launch
+    rotation's `lhs`), which the kernel's blocks write and read back by TMA
+    while it is in L2, and one int32 counter per 64-row batch tile."""
     who = "cmux_step_karatsuba_kernel"
 
     def check(cond, what):
         require(cond, what, who)
 
-    check(acc.dim() == 3 and e_step.dim() == 2 and bara.dim() == 1,
-          "acc must be [B, K, N], e_step [R*P*T, K*4*T], bara [B]")
+    check(acc.dim() == 3 and bara.dim() == 1,
+          "acc must be [B, K, N], bara [B]")
+    bsz, k1, n = acc.shape
+    m, pt = check_rotation_geometry(who, k1, n, l, b, t, plan)
+    dots.require_kmajor(who, e_step, (), k1, t, plan.total_rows * pt)
     check(acc.is_cuda and e_step.is_cuda and bara.is_cuda,
           "tensors must be on a CUDA device")
     check(acc.device == e_step.device == bara.device,
@@ -105,31 +147,61 @@ def cmux_step_karatsuba_kernel(acc: torch.Tensor, e_step: torch.Tensor,
           and e_step.dtype == torch.int8, "dtypes must be int32/int8/int32")
     check(acc.is_contiguous() and e_step.is_contiguous()
           and bara.is_contiguous(), "tensors must be contiguous")
-    bsz, k1, n = acc.shape
-    m, pt = check_rotation_geometry(who, k1, n, l, b, t, plan)
     check(tuple(bara.shape) == (bsz,), f"bara must be [{bsz}]")
-    check(tuple(e_step.shape) == (plan.total_rows * pt, k1 * 4 * t),
-          f"key step shape {tuple(e_step.shape)} does not fit the plan")
-    smem = TILE_ROWS * m * pt * (1 if b <= 8 else 2) + _STAGING_SMEM
-    check(smem <= _MAX_SMEM,
-          f"a tile of {TILE_ROWS} rows of digits (K={k1}, l={l}, N={n}) "
-          f"with the staging tiles takes {smem} bytes, past the {_MAX_SMEM} "
-          "bytes of shared memory a block can use")
 
     out = torch.empty_like(acc)
     if bsz:
-        lib = _build.load()
-        seg_table, terms, term_start, lhs_rows = _device_tables(
-            plan, k1 * l, t, str(acc.device))
-        stream = torch.cuda.current_stream(acc.device).cuda_stream
-        err = lib.tfhe_cmux_step_karatsuba(
-            acc.data_ptr(), e_step.data_ptr(), bara.data_ptr(),
-            out.data_ptr(), seg_table.data_ptr(), terms.data_ptr(),
-            term_start.data_ptr(), bsz, k1, n, l, b, m, lhs_rows,
-            decomp_offset(l, b, balanced), ctypes.c_void_p(stream))
+        lib, args, _scratch = _launch_args(acc, e_step, bara, out, l, b, t,
+                                           plan, balanced)
+        err = lib.tfhe_cmux_step_karatsuba(*args)
         raise_on_error(who, lib, err)
         cmux_step_karatsuba_kernel.launches += 1
     return out
+
+
+def _launch_args(acc, e_step, bara, out, l, b, t, plan, balanced):
+    """The C entry's arguments: (lib, args, the scratch tensors, to be held
+    until the launch is enqueued)."""
+    from . import _build
+
+    bsz, k1, n = acc.shape
+    m, pt = n // t, k1 * l * t
+    lib = _build.load()
+    combos, n_combos, lhs_rows = combo_table(plan, k1 * l, t)
+    products, targets, items, n_items = _device_tables(plan, k1, l, t,
+                                                       str(acc.device))
+    lhs = torch.empty((bsz, lhs_rows * pt), dtype=torch.int8,
+                      device=acc.device)
+    ready = torch.empty((-(-bsz // dots.ROW_TILE),), dtype=torch.int32,
+                        device=acc.device)
+    stream = torch.cuda.current_stream(acc.device).cuda_stream
+    return lib, (acc.data_ptr(), e_step.data_ptr(), bara.data_ptr(),
+                 out.data_ptr(), lhs.data_ptr(), ready.data_ptr(),
+                 combos.data_ptr(), n_combos, products.data_ptr(),
+                 targets.data_ptr(), items.data_ptr(), n_items,
+                 dots.ring_stages(m), stage_rows(k1, n, m), bsz, k1, n, l, b,
+                 m, lhs_rows, plan.total_rows, decomp_offset(l, b, balanced),
+                 ctypes.c_void_p(stream)), (lhs, ready)
+
+
+def cmux_step_karatsuba_probe(acc: torch.Tensor, e_step: torch.Tensor,
+                              bara: torch.Tensor, *, probe: int, l: int,
+                              b: int, t: int, plan: KaratsubaPlan,
+                              balanced: bool) -> int:
+    """Timing only, never on a path: the kernel's launch with phase 1 alone
+    (probe 1) or phase 2 alone (probe 2, on scratch digits), its output
+    meaningless; probe 0 launches nothing and returns the blocks the card
+    holds at once (the grid of a large batch). Takes what
+    `cmux_step_karatsuba_kernel` takes, unchecked."""
+    out = torch.empty_like(acc)
+    lib, args, _scratch = _launch_args(acc, e_step, bara, out, l, b, t, plan,
+                                       balanced)
+    resident = ctypes.c_int(0)
+    err = lib.tfhe_cmux_step_karatsuba_probe(
+        *args[:-1], probe, ctypes.byref(resident) if probe == 0 else None,
+        args[-1])
+    raise_on_error("cmux_step_karatsuba_probe", lib, err)
+    return resident.value
 
 
 cmux_step_karatsuba_kernel.launches = 0
@@ -138,7 +210,8 @@ cmux_step_karatsuba_kernel.launches = 0
 def cmux_step_karatsuba(acc: torch.Tensor, e_step: torch.Tensor,
                         bara: torch.Tensor, *, l: int, b: int, t: int,
                         plan: KaratsubaPlan, balanced: bool) -> torch.Tensor:
-    """CPU tensors take the plain version, CUDA tensors the kernel."""
+    """CPU tensors take the plain version (the step in the reference
+    layout), CUDA tensors the kernel (the step K-major)."""
     fn = cmux_step_karatsuba_kernel if acc.is_cuda \
         else cmux_step_karatsuba_plain
     return fn(acc, e_step, bara, l=l, b=b, t=t, plan=plan, balanced=balanced)

@@ -25,8 +25,8 @@ from .api import SecretKey
 from .bootstrap import BootstrapKey, blind_rotate, blind_rotate_and_extract
 from .keyswitch import KeyswitchKey, keyswitch
 from .lwe import LweSample, lwe_encrypt, lwe_phase
-from .numeric import (decode_message, dtot32, rand_gaussian_float,
-                      rand_uniform_torus32)
+from .numeric import (decode_message, dtot32, input_device,
+                      rand_gaussian_float, rand_uniform_torus32)
 from .tlwe import (TLweSample, tlwe_extract_sample, tlwe_mul_by_monomial,
                    tlwe_noiseless_trivial)
 
@@ -38,9 +38,12 @@ def _log2(space: int) -> int:
 
 
 def encode_pbs(message, space: int, device=None) -> torch.Tensor:
-    """m in [0, S) -> torus phase m/(2S) (one padding bit), int32."""
+    """m in [0, S) -> torus phase m/(2S) (one padding bit), int32, on
+    `device`, or else on the device of a tensor `message`, or else the
+    card."""
     shift = 32 - (_log2(space) + 1)
-    return torch.as_tensor(message, device=device).to(torch.int32) << shift
+    return torch.as_tensor(message, device=input_device(message, device)) \
+        .to(torch.int32) << shift
 
 
 def decode_pbs(phase: torch.Tensor, space: int) -> torch.Tensor:
@@ -64,7 +67,8 @@ def lut_test_polynomial(table, space: int, polynomial_degree: int,
                         device=None) -> torch.Tensor:
     """LUT (plaintext ints in [0, S), shape [..., S]) -> test polynomial
     int32[..., N]: each entry repeated across its w = N/S index window.
-    Outputs carry the same PBS encoding, so bootstraps compose."""
+    Outputs carry the same PBS encoding, so bootstraps compose. Placed as
+    `encode_pbs` places it."""
     enc = encode_pbs(table, space, device)
     assert enc.shape[-1] == space
     w = polynomial_degree // space
@@ -129,7 +133,8 @@ def programmable_bootstrap(bk: BootstrapKey, ks: KeyswitchKey, table,
 def lut_many_test_polynomial(tables, space: int, q: int,
                              polynomial_degree: int,
                              device=None) -> torch.Tensor:
-    """tables int[..., q, S] -> v[..., N] with v[m*w + r] = enc(T_{r%q}[m])."""
+    """tables int[..., q, S] -> v[..., N] with v[m*w + r] = enc(T_{r%q}[m]),
+    placed as `encode_pbs` places it."""
     enc = encode_pbs(tables, space, device)  # [..., q, S]
     assert enc.shape[-2] == q and enc.shape[-1] == space
     w = polynomial_degree // space

@@ -30,7 +30,7 @@ import torch
 
 from .api import CloudKey, SecretKey
 from .lwe import LweSample, lwe_noiseless_trivial
-from .numeric import encode_message
+from .numeric import encode_message, input_device
 from .pbs import (
     decrypt_pbs,
     encrypt_pbs,
@@ -53,14 +53,17 @@ SPACE = 2 * DIGIT_BASE  # 8: one carry bit of headroom inside the padded half
 
 
 def _words64(values, device=None) -> torch.Tensor:
-    """Integers of any signedness as int64 values mod 2^32."""
+    """Integers of any signedness as int64 values mod 2^32, placed as
+    `numeric.input_device` says."""
+    device = input_device(values, device)
     if not isinstance(values, torch.Tensor):
         values = np.asarray(values).astype(np.int64)
     return torch.as_tensor(values, device=device).to(torch.int64) & 0xFFFFFFFF
 
 
 def int_to_digits(values, n_digits: int, device=None) -> torch.Tensor:
-    """int[...] -> int32[..., n_digits] base-4 digits, LSB first."""
+    """int[...] -> int32[..., n_digits] base-4 digits, LSB first, on
+    `device`, or else the device of a tensor `values`, or else the card."""
     values = _words64(values, device)
     shifts = torch.arange(n_digits, device=values.device) * BITS_PER_DIGIT
     return ((values[..., None] >> shifts) & (DIGIT_BASE - 1)).to(torch.int32)
