@@ -107,7 +107,35 @@ back):
    Kogge-Stone adder compiled by the native scheduler (built from
    native/circuit_scheduler.cc) with `outputs=`, run at batch 256, sums
    correct and the streamed outputs equal to the dense run's.
-14. The kernels' JSON line, the card's line, then the result line
+   Phase 3 also prints the fused step's bound at B = 4096 at each of its
+   plans (`[3 bound]`).
+14. The wire and serving path on `tfhe_parameters_128_fast`, batch 4096:
+   the threefry twin's three known-answer vectors computed on the card; a
+   seeded cloud key (`compressed.make_seeded_cloud_key`) as bytes
+   (`utils.serialization.dumps`), loaded onto the card and expanded (the
+   bake K-major), its keyswitch masks and bootstrap step 0's masks equal
+   to the same seed's expanded on the CPU; a seeded public key through the
+   bytes, `encrypt_public` of 4096 bits (timed), 5 chained NAND layers on
+   them (4096/4096, one rotation launch per layer), the outputs
+   mod-switched to 16 bits through the bytes (4096/4096), their noise
+   report healthy, re-keyed to a second user (timed, 4096/4096 under the
+   second key); a 2-party lownoise ceremony through the seeded shared key
+   and seeded cloud key parts as bytes, one MK NAND layer of 4096 on the
+   assembled key (all correct, the MK compact kernel launched); a toy
+   baked key held K-major on the card through the bytes to the CPU (the
+   reference layout, equal to `from_kmajor` of the card key) and back
+   (equal to the card key).
+15. On phase 14's key: a 16-bit Kogge-Stone netlist job at batch 256 under
+   `utils.jobs.run_checkpointed` (a checkpoint every 2 scheduled batches)
+   preempted after its first chunk and resumed, bit-equal to the
+   uninterrupted run, the checkpoint removed; one NAND layer of 4096 under
+   `tuning.override(debug=True)` (equal to the layer without), and again
+   with `blind_rotate_kernel`'s output corrupted (must raise
+   `FHEDebugError`); `utils.profiling.trace` of one layer (a Chrome trace
+   file); `bootstrap_roofline(128_fast, 4096, depth=1)`, its per-step
+   operations floor within 1% of phase 3's row-1 bound, and the measured
+   layer's share of it.
+16. The kernels' JSON line, the card's line, then the result line
    {"ok": true, "device": {...}}.
 """
 
@@ -117,6 +145,7 @@ import json
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import torch
 
@@ -596,6 +625,7 @@ def phase3_fused(ks, gen, card):
         cmux_step_karatsuba_kernel,
         cmux_step_karatsuba_plain,
     )
+    from tfhe_tpu_torch.ops.karatsuba import karatsuba_plan
 
     name = "cmux_step_karatsuba"
     ks.entry(name, "fused_step.cu", f"{MK_SRC}:185")
@@ -618,6 +648,20 @@ def phase3_fused(ks, gen, card):
         ks.compare(name, what + f" ({steps} steps in a row)",
                    chain(cmux_step_karatsuba_kernel, acc, key_km, bara_t, kw),
                    blind_rotate_kernel(acc, key_km, bara_t, **kw))
+
+    # one step's bound at B = 4096 at each plan (the shapes --rows-against
+    # times): the useful operations of step_operations; the accumulator
+    # read and written, the key step and bara read once
+    for preset, k1, n, l, b, depth in FUSED_PLANS:
+        plan = karatsuba_plan(n // T, depth, b)
+        useful, _ = step_operations(SimpleNamespace(
+            mask_size=k1 - 1, decomp_length=l, block=T, plan=plan), BATCH)
+        io = 2 * BATCH * k1 * n * 4 + plan.total_rows * (k1 * l * T) \
+            * (k1 * 4 * T) + BATCH * 4
+        ms, by = bound_ms(io, useful, PEAK_INT8_OPS_PER_S)
+        print(f"[3 bound] {name} {preset} B={BATCH}: one step's bound "
+              f"{ms:.4f} ms by {by} ({useful:.4g} useful int8 operations, "
+              f"{io / 1e6:.1f} MB) | {card}", flush=True)
 
     acc, key, bara_t, kw = random_case(gen, 5, 256, 2, 8, 1, steps, BATCH)
     key_km = to_kmajor(key)
@@ -1743,6 +1787,331 @@ def phase13_circuits_netlist(tp, dev, card):
           f"{card}", flush=True)
 
 
+# Random123's known-answer vectors for threefry2x32 (20 rounds), which
+# jax.random reproduces: (key, counter, output).
+THREEFRY_KAT = [
+    ((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+    ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+     (0x1CB996FC, 0xBB002BE7)),
+    ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+     (0xC4923A9C, 0x483DF7A0)),
+]
+
+
+def timed_s(fn):
+    """(result, seconds) of fn() on the host clock, ended by a
+    synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mb(n_bytes) -> float:
+    return n_bytes / 1e6
+
+
+def phase14_wire(tp, dev, card):
+    """The wire and serving path at 128_fast, batch 4096, on the card.
+    Returns (secret key, cloud key, the inputs and outputs of its NAND
+    chain, seconds per layer) for phase 15."""
+    from tfhe_tpu_torch import compressed as pc
+    from tfhe_tpu_torch import mk, public, rekey, threefry
+    from tfhe_tpu_torch.ops.dots import from_kmajor
+    from tfhe_tpu_torch.utils import serialization as ser
+    from tfhe_tpu_torch.utils import telemetry
+
+    fresh_device(dev)
+    params = tp.tfhe_parameters_128_fast()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+
+    # 4. the threefry twin's known-answer vectors, computed on the card
+    for key, (c0, c1), want in THREEFRY_KAT:
+        y0, y1 = threefry.threefry2x32(
+            key, *(torch.tensor([c], dtype=torch.int64, device=dev)
+                   for c in (c0, c1)))
+        check(y0.is_cuda and (int(y0), int(y1)) == want,
+              f"threefry2x32{key, (c0, c1)} gave {int(y0):#x}, {int(y1):#x}")
+
+    # 1. the client's seeded cloud key, as bytes
+    sk = tp.make_secret_key(gen, params)
+    seeded, keygen_s = timed_s(lambda: pc.make_seeded_cloud_key(gen, sk))
+    wire = ser.dumps(seeded)
+    bodies = nbytes(seeded.bootstrap_key.body)
+    ks_bodies = nbytes(seeded.keyswitch_key.b)
+
+    # 2. the server loads the bytes onto the card and expands them
+    (loaded, ck), expand_s = timed_s(lambda: (
+        lambda ld: (ld, pc.expand_cloud_key(ld)))(ser.loads(wire, dev)))
+    bk = ck.bootstrap_key
+    check(bk.layout == "kmajor"
+          and tuple(bk.baked.shape) == (630, 5, 4, T, 3840),
+          f"expanded key {tuple(bk.baked.shape)}, layout {bk.layout}")
+    print(f"[14 wire] seeded 128_fast cloud key: made in {keygen_s:.2f} s, "
+          f"{len(wire)} bytes on the wire (bootstrap bodies "
+          f"{mb(bodies):.2f} MB, keyswitch bodies {mb(ks_bodies):.3f} MB) "
+          f"against {mb(nbytes(bk.baked, ck.keyswitch_key.table_limbs)):.1f}"
+          f" MB expanded (x{nbytes(bk.baked) / len(wire):.0f}) | loads to "
+          f"the card + expand_cloud_key: {expand_s:.2f} s, key K-major "
+          f"{tuple(bk.baked.shape)} | {card}", flush=True)
+
+    # 3. the masks expanded on the card equal the same seed's on the CPU
+    ksk = loaded.keyswitch_key
+    shape = (3, ksk.decomp_length, ksk.n_in, ksk.n_out)
+    check(torch.equal(
+        threefry.uniform_torus32(ksk.seed, shape, dev).cpu(),
+        threefry.uniform_torus32(ksk.seed.cpu(), shape, "cpu")),
+        "keyswitch masks: card != CPU")
+    sb = loaded.bootstrap_key
+    step = (1, sb.decomp_length, sb.mask_size + 1, sb.mask_size,
+            sb.polynomial_degree)  # step 0 is the first words of the draw
+    card_masks = threefry.uniform_torus32(sb.seed, (sb.n,) + step[1:], dev)
+    check(torch.equal(card_masks[:1].cpu(),
+                      threefry.uniform_torus32(sb.seed.cpu(), step, "cpu")),
+          "bootstrap masks of step 0: card != CPU")
+    del card_masks
+    print(f"[14 wire] threefry on the card: 3 known-answer vectors equal; "
+          f"masks card == CPU for the keyswitch key ({shape}) and bootstrap "
+          f"step 0 ({step[1:]})", flush=True)
+
+    # 5. untrusted writers encrypt under a seeded public key
+    pk_seeded = public.make_public_key_seeded(gen, sk)
+    pk_wire = ser.dumps(pk_seeded)
+    pk = public.expand_public_key(ser.loads(pk_wire, dev))
+    idx = torch.arange(BATCH, device=dev)
+    bits_x, bits_y = idx % 2 == 0, idx % 3 == 0
+    public.encrypt_public(gen, pk, bits_x[:256])  # warm-up
+    ct_x, enc_s = timed_s(lambda: public.encrypt_public(gen, pk, bits_x))
+    ct_y = public.encrypt_public(gen, pk, bits_y)
+    check(bool((tp.decrypt(sk, ct_x) == bits_x).all()
+               and (tp.decrypt(sk, ct_y) == bits_y).all()),
+          "public-key ciphertexts do not decrypt")
+    wrappers = reset_counts()
+
+    def chain():
+        out = tp.gate_nand(ck, ct_x, ct_y)
+        for _ in range(LAYERS - 1):
+            out = tp.gate_nand(ck, out, ct_y)
+        return out
+
+    out, chain_s = timed_s(chain)
+    want = ~(bits_x & bits_y)
+    for _ in range(LAYERS - 1):
+        want = ~(want & bits_y)
+    correct = int((tp.decrypt(sk, out) == want).sum())
+    check(correct == BATCH, f"public-key NAND chain: {correct}/{BATCH}")
+
+    # 6. the results travel back mod-switched to 16 bits
+    full_wire = len(ser.dumps(out))
+    small_wire = ser.dumps(pc.compress_lwe(out, bits=16))
+    back = pc.decompress_lwe(ser.loads(small_wire, dev))
+    back_ok = int((tp.decrypt(sk, back) == want).sum())
+    check(back_ok == BATCH, f"16-bit results: {back_ok}/{BATCH} decrypt")
+
+    # 7. the noise report of the outputs
+    report = telemetry.noise_margin(sk, out, want)
+    check(report.healthy(), f"noise margin unhealthy: {report}")
+
+    # 8. re-keying the results to a second user
+    sk2 = tp.make_secret_key(gen, params)
+    rk = rekey.make_rekey_key(gen, sk, sk2)
+    rekey.rekey(rk, ct_x)  # warm-up
+    moved, rekey_s = timed_s(lambda: rekey.rekey(rk, out))
+    moved_ok = int((tp.decrypt(sk2, moved) == want).sum())
+    check(moved_ok == BATCH, f"re-keyed: {moved_ok}/{BATCH} decrypt")
+    counts = {k: v for k, v in read_counts(wrappers).items() if v}
+    check(counts.get("blind_rotate") == LAYERS,
+          f"the wire path's NAND layers launched {counts}")
+    print(f"[14 serving] seeded public key ({public.default_count(params)} "
+          f"zero encryptions): {len(pk_wire)} bytes on the wire against "
+          f"{mb(nbytes(pk.zeros.a, pk.zeros.b, pk.zeros.cv)):.1f} MB "
+          f"expanded | encrypt_public of {BATCH} bits {enc_s * 1e3:.3f} ms | "
+          f"{LAYERS} NAND layers on them in {chain_s:.3f} s = "
+          f"{BATCH * LAYERS / chain_s:.1f} gates/s, {correct}/{BATCH} "
+          f"correct | launches {counts} | 16-bit results: {len(small_wire)} "
+          f"bytes against {full_wire}, {back_ok}/{BATCH} decrypt | noise: "
+          f"max error {report.max_error:.3e}, margin {report.margin:.4f}, "
+          f"healthy | rekey to a second user {rekey_s * 1e3:.3f} ms, "
+          f"{moved_ok}/{BATCH} correct under the second key | {card}",
+          flush=True)
+
+    # 9. a 2-party lownoise ceremony through the seeded wire forms
+    mk_params = mk.mktfhe_parameters_2party_lownoise()
+    shared_wire = ser.dumps(pc.make_shared_key_seeded(gen, mk_params))
+    shared = pc.expand_shared_key(ser.loads(shared_wire, dev))
+    mk_sks, parts, part_wires, part_full = [], [], [], []
+    for _ in range(2):
+        mk_sks.append(tp.make_secret_key(gen, mk_params))
+        data = ser.dumps(pc.make_seeded_cloud_key_part(gen, mk_sks[-1],
+                                                       shared))
+        part_wires.append(len(data))
+        parts.append(pc.expand_cloud_key_part(ser.loads(data, dev)))
+        part_full.append(nbytes(parts[-1].public_key,
+                                parts[-1].key_uni_enc.cd,
+                                parts[-1].keyswitch_key.table_limbs))
+    mk_ck = mk.make_mk_cloud_key(parts)
+    del parts
+    wrappers = reset_counts()
+    _, _, mk_correct, mk_s = mk_nand_chain(mk, mk_ck, mk_sks, gen, 1, BATCH,
+                                           dev)
+    mk_counts = {k: v for k, v in read_counts(wrappers).items() if v}
+    check(mk_counts.get("mk_blind_rotate_compact") == 2,
+          f"the seeded MK layer launched {mk_counts}")
+    print(f"[14 MK wire] 2-party lownoise seeded ceremony: shared key "
+          f"{len(shared_wire)} bytes; per party {part_wires} bytes on the "
+          f"wire against {[round(mb(x), 1) for x in part_full]} MB expanded"
+          f" | one MK NAND layer of {BATCH} on the assembled key: "
+          f"{mk_s:.3f} s = {BATCH / mk_s:.1f} gates/s, {mk_correct}/{BATCH} "
+          f"correct | launches {mk_counts} | {card}", flush=True)
+    del mk_ck
+
+    # 10. a baked card key through the file format and back
+    toy_sk, toy_ck = tp.make_key_pair(gen, tp.tfhe_parameters_toy())
+    held = toy_ck.bootstrap_key.baked
+    check(toy_ck.bootstrap_key.layout == "kmajor", "toy key not K-major")
+    data = ser.dumps(toy_ck)
+    on_cpu = ser.loads(data, "cpu")
+    ref_layout = torch.stack([from_kmajor(s) for s in held]).cpu()
+    check(on_cpu.bootstrap_key.layout == "reference"
+          and torch.equal(on_cpu.bootstrap_key.baked, ref_layout),
+          "a card key loaded on the CPU is not from_kmajor of the card key")
+    again = ser.loads(ser.dumps(on_cpu), dev)
+    check(again.bootstrap_key.layout == "kmajor"
+          and torch.equal(again.bootstrap_key.baked, held)
+          and torch.equal(again.keyswitch_key.table_limbs,
+                          toy_ck.keyswitch_key.table_limbs),
+          "the card key did not survive the round trip")
+    print(f"[14 file format] toy baked key ({mb(nbytes(held)):.1f} MB, "
+          f"K-major on the card): dumps -> loads on the CPU = from_kmajor "
+          f"of the card key; -> loads on the card = the card key | {card}",
+          flush=True)
+    return sk, ck, (ct_x, ct_y), chain_s / LAYERS
+
+
+def phase15_jobs_debug_profiling(tp, ks, dev, card, wire):
+    """Checkpointed jobs, debug mode and profiling on phase 14's key."""
+    import os
+    import shutil
+    import tempfile
+
+    from tfhe_tpu_torch import circuits, debug, netlist
+    from tfhe_tpu_torch.ops import blind_rotate as br
+    from tfhe_tpu_torch.utils import jobs, profiling
+
+    sk, ck, (ct_x, ct_y), layer_s = wire
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+
+    # 1. a 16-bit Kogge-Stone job, preempted after its first chunk
+    bits, batch = 16, 256
+    circ = netlist.Circuit()
+    a_w, b_w = circ.inputs(bits), circ.inputs(bits)
+    sums = netlist.build_kogge_stone_adder(circ, a_w, b_w)
+    sched = circ.compile(use_native=True, outputs=sums)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    idx = torch.arange(batch, device=dev)
+    av, bv = (idx * 257 + 3) % 65536, (idx * 8191 + 77) % 65536
+    ca = circuits.encrypt_word(gen, sk, av, bits)
+    cb = circuits.encrypt_word(gen, sk, bv, bits)
+    inputs = {w: circuits._bit(ca, i) for i, w in enumerate(a_w)}
+    inputs.update({w: circuits._bit(cb, i) for i, w in enumerate(b_w)})
+    want, whole_s = timed_s(lambda: sched.run(ck, inputs, (batch,)))
+    path = os.path.join(tmp, "job.ckpt")
+
+    class Preempted(Exception):
+        pass
+
+    def preempt(done, total):
+        raise Preempted(done)
+
+    try:
+        jobs.run_checkpointed(sched, ck, inputs, path, batch_shape=(batch,),
+                              every=2, on_chunk=preempt)
+        check(False, "the job was not preempted")
+    except Preempted:
+        pass
+    ckpt_bytes = os.path.getsize(path)
+    resumed_at = []
+    got, resume_s = timed_s(lambda: jobs.run_checkpointed(
+        sched, ck, inputs, path, batch_shape=(batch,), every=2,
+        on_chunk=lambda done, total: resumed_at.append(done)))
+    check(resumed_at[0] == 4, f"the job resumed at batch {resumed_at[:1]}")
+    check(torch.equal(got.a, want.a) and torch.equal(got.b, want.b),
+          "the resumed job differs from the uninterrupted run")
+    check(not os.path.exists(path), "the checkpoint was left behind")
+    sums_ok = int((circuits.decrypt_word(sk, sched.wire(got, sums))
+                   == (av + bv) % 65536).sum())
+    check(sums_ok == batch, f"checkpointed adder: {sums_ok}/{batch}")
+    print(f"[15 jobs] 16-bit Kogge-Stone at batch {batch}, "
+          f"{sched.n_batches} scheduled batches, a checkpoint every 2: "
+          f"preempted after the first chunk ({ckpt_bytes} bytes of "
+          f"checkpoint), resumed at batch 2, finished in {resume_s:.3f} s "
+          f"(uninterrupted {whole_s:.3f} s), bit-equal, checkpoint removed, "
+          f"{sums_ok}/{batch} sums correct | {card}", flush=True)
+
+    # 2. one NAND layer under debug mode: clean, the same words
+    plain_out = tp.gate_nand(ck, ct_x, ct_y)
+    with tp.tuning.override(debug=True):
+        dbg_out, dbg_s = timed_s(lambda: tp.gate_nand(ck, ct_x, ct_y))
+    check(torch.equal(dbg_out.a, plain_out.a)
+          and torch.equal(dbg_out.b, plain_out.b),
+          "the debug layer's words differ from the layer without debug")
+
+    # 3. the same with the kernel wrapper's output corrupted
+    real = br.blind_rotate_kernel
+
+    def corrupted(*args, **kw):
+        out = real(*args, **kw)
+        out[0, 0, 0] += 1
+        return out
+
+    corrupted.launches = 0
+    br.blind_rotate_kernel = corrupted
+    try:
+        with tp.tuning.override(debug=True):
+            tp.gate_nand(ck, ct_x, ct_y)
+        raised = False
+    except debug.FHEDebugError:
+        raised = True
+    finally:
+        br.blind_rotate_kernel = real
+    check(raised, "debug mode did not raise on a corrupted kernel output")
+    print(f"[15 debug] one NAND layer of {BATCH} under debug: "
+          f"{dbg_s:.3f} s (without: {layer_s:.3f} s), the kernel held "
+          f"against the step-by-step loop, outputs equal to the layer "
+          f"without debug | with the kernel's output corrupted: "
+          f"FHEDebugError | {card}", flush=True)
+
+    # 4. a trace of one layer
+    trace_dir = os.path.join(tmp, "trace")
+    with profiling.trace(trace_dir):
+        tp.gate_nand(ck, ct_x, ct_y)
+        torch.cuda.synchronize()
+    trace_bytes = os.path.getsize(os.path.join(trace_dir, "trace.json"))
+    check(trace_bytes > 0, "the trace is empty")
+
+    # 5. the roofline of the layer's rotation
+    roof = profiling.bootstrap_roofline(ck.params, BATCH, depth=1)
+    util = roof.utilization(layer_s)
+    per_step_ms = roof.int8_floor_s / ck.params.lwe_size * 1e3
+    row1 = ks.entries["blind_rotate"]
+    row1_step_ms = row1["bound_ms"] / TIMED_STEPS
+    check(row1["bound_by"] == "operations"
+          and abs(per_step_ms - row1_step_ms) <= 0.01 * row1_step_ms,
+          f"roofline {per_step_ms:.5f} ms a step against phase 3's row-1 "
+          f"bound {row1_step_ms:.5f}")
+    print(f"[15 profiling] trace of one layer: {trace_bytes} bytes of "
+          f"Chrome trace | bootstrap_roofline(128_fast, {BATCH}, depth=1): "
+          f"{roof.byte_macs:.4g} int8 MACs, {mb(roof.hbm_bytes):.1f} MB, "
+          f"floors {roof.int8_floor_s * 1e3:.3f} ms (int8) and "
+          f"{roof.hbm_floor_s * 1e3:.3f} ms (HBM) a layer, {per_step_ms:.5f}"
+          f" ms a step against phase 3's row-1 bound {row1_step_ms:.5f} | "
+          f"the measured layer ({layer_s * 1e3:.1f} ms) at "
+          f"{100 * util['int8']:.1f}% of the int8 floor | {card}",
+          flush=True)
+    shutil.rmtree(tmp)
+
+
 def build_earlier(csrc, out_dir):
     """An earlier tree's kernels: its csrc/*.cu compiled (one nvcc per
     source, all started together) and linked into one library under
@@ -2142,6 +2511,9 @@ def main() -> int:
     phase11_radix(tp, dev, card)
     phase12_radix_reliable(tp, dev, card)
     phase13_circuits_netlist(tp, dev, card)
+    wire = phase14_wire(tp, dev, card)
+    phase15_jobs_debug_profiling(tp, ks, dev, card, wire)
+    del wire
 
     for ent in ks.entries.values():
         check(ent["launches"] > 0,

@@ -11,7 +11,7 @@ from tfhe_tpu_torch import tuning as p_tuning
 
 PORTED = ("karatsuba_depth", "bs_bake_budget", "mk_bake_budget",
           "mk_sparse_limbs", "mk_cmux", "mk_chunk", "mk_mega", "mk_compact",
-          "mk_progressive", "radix_manylut")
+          "mk_progressive", "radix_manylut", "debug")
 
 
 @pytest.fixture(autouse=True)

@@ -31,7 +31,8 @@ from .ops.conv import bake_block_toeplitz
 from .ops.dots import relayout_kmajor_
 from .ops.karatsuba import KaratsubaPlan, bake_karatsuba, karatsuba_plan
 from .tgsw import prepare_tgsw, tgsw_encrypt, tgsw_extern_mul_prepared
-from .tlwe import TLweSample, tlwe_extract_sample, tlwe_noiseless_trivial
+from .tlwe import (TLweSample, tlwe_extract_sample, tlwe_mul_by_monomial,
+                   tlwe_noiseless_trivial)
 from .tuning import get_tuning
 
 
@@ -154,10 +155,28 @@ def bootstrap_key_gen(generator: torch.Generator, alpha: float,
                                   noise_stddev=alpha, balanced=balanced)
 
 
+def mux_rotate(accum: TLweSample, bki_limbs: torch.Tensor,
+               barai: torch.Tensor, decomp_length: int, log2_base: int,
+               balanced: bool = False) -> TLweSample:
+    """One CMUX against a prepared TGSW operand int8[4, P, k+1, 2N]:
+    accum += BK_i (x) [(X^bara_i - 1) * accum]. accum: [B, k+1, N];
+    barai: int32[B]."""
+    temp = tlwe_mul_by_monomial(accum, barai) - accum
+    delta = tgsw_extern_mul_prepared(temp, bki_limbs, decomp_length,
+                                     log2_base, balanced)
+    return TLweSample(accum.a + delta.a, accum.cv)
+
+
 def blind_rotate(accum: TLweSample, bk: BootstrapKey,
                  bara: torch.Tensor) -> TLweSample:
     """Multiply the accumulator by X^{sum_i bara_i * s_i} via n CMUX steps.
-    accum: [B, k+1, N]; bara: int32[B, n]."""
+    accum: [B, k+1, N]; bara: int32[B, n]. Under `tuning.debug` the
+    rotation is held against the step-by-step loop (debug.py), whose result
+    it returns."""
+    if get_tuning().debug:
+        from .debug import crosscheck_blind_rotate
+
+        return crosscheck_blind_rotate(accum, bk, bara)
     l, b, t = bk.decomp_length, bk.log2_base, bk.block
     acc = accum.a.contiguous()
     bara_t = bara.to(torch.int32).transpose(0, 1).contiguous()  # [n, B]
@@ -172,10 +191,8 @@ def blind_rotate(accum: TLweSample, bk: BootstrapKey,
         else:
             out_a = acc
             for limbs_i, bara_i in zip(bk.baked, bara_t):
-                rot = polynomial.mul_by_monomial(out_a, bara_i[:, None])
-                temp = TLweSample(rot - out_a, accum.cv)
-                out_a = out_a + tgsw_extern_mul_prepared(
-                    temp, limbs_i, l, b, bk.balanced).a
+                out_a = mux_rotate(TLweSample(out_a, accum.cv), limbs_i,
+                                   bara_i, l, b, bk.balanced).a
     elif bk.depth:
         out_a = blind_rotate_baked(acc, bk.baked, bara_t, l=l, b=b, t=t,
                                    plan=bk.plan, balanced=bk.balanced)

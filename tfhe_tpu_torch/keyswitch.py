@@ -62,6 +62,19 @@ def keyswitch_key_core(in_key: torch.Tensor, out_key: torch.Tensor,
     n_in, n_out]; noise_t32: int32[base-1, l, n_in].
     ks[h, j, i] = Enc(s_in[i] * (h+1) * 2^(32-(j+1)*b)).
     """
+    b = keyswitch_bodies(in_key, out_key, a_uniform, noise_t32,
+                         decomp_length, log2_base)
+    return KeyswitchKey(
+        prepare_keyswitch_table(a_uniform, b, out_key.shape[0]),
+        in_key.shape[0], out_key.shape[0], decomp_length, log2_base,
+        noise_stddev)
+
+
+def keyswitch_bodies(in_key: torch.Tensor, out_key: torch.Tensor,
+                     a_uniform: torch.Tensor, noise_t32: torch.Tensor,
+                     decomp_length: int, log2_base: int) -> torch.Tensor:
+    """The bodies int32[base-1, l, n_in] of the keyswitch key's samples:
+    s_in[i] * (h+1) * 2^(32-(j+1)*b) + noise + <a, s_out>."""
     base = 1 << log2_base
     dev = in_key.device
     h = torch.arange(1, base, dtype=torch.int32, device=dev)
@@ -69,11 +82,7 @@ def keyswitch_key_core(in_key: torch.Tensor, out_key: torch.Tensor,
                                device=dev) * log2_base
     message = (in_key[None, None, :] * h[:, None, None]) << shifts[None, :, None]
     b = message + noise_t32
-    b = b + torch.sum(a_uniform * out_key, dim=-1, dtype=torch.int32)
-    return KeyswitchKey(
-        prepare_keyswitch_table(a_uniform, b, out_key.shape[0]),
-        in_key.shape[0], out_key.shape[0], decomp_length, log2_base,
-        noise_stddev)
+    return b + torch.sum(a_uniform * out_key, dim=-1, dtype=torch.int32)
 
 
 def keyswitch_key_gen(generator: torch.Generator, alpha: float,

@@ -75,6 +75,21 @@ def lwe_encrypt(generator: torch.Generator, message: torch.Tensor,
                                          device=a.device))
 
 
+def lwe_encrypt_with_noise(generator: torch.Generator, message,
+                           noise_float: torch.Tensor, alpha: float,
+                           key: torch.Tensor) -> LweSample:
+    """Encryption with given float noise values (truncated to the torus)
+    and fresh uniform masks; cv records alpha^2."""
+    message = torch.as_tensor(message, dtype=torch.int32,
+                              device=generator.device)
+    n = key.shape[-1]
+    a = rand_uniform_torus32(generator, tuple(message.shape) + (n,))
+    sample = lwe_encrypt_core(message, a, dtot32(noise_float), key)
+    return sample._replace(cv=torch.full(sample.b.shape, alpha**2,
+                                         dtype=torch.float32,
+                                         device=a.device))
+
+
 def lwe_phase(sample: LweSample, key: torch.Tensor) -> torch.Tensor:
     """phi = b - <a, s> (int32 wrapping)."""
     return sample.b - torch.sum(sample.a * key, dim=-1, dtype=torch.int32)

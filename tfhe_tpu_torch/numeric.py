@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+Torus32 = torch.int32
+
 # 2^32 as a float; used only to scale unit-range floats into torus words.
 _TWO32 = float(2**32)
 _TWO31 = float(2**31)
@@ -76,3 +78,12 @@ def rand_gaussian_float(generator: torch.Generator, sigma: float,
     """N(0, sigma^2) float32 values."""
     return torch.randn(tuple(shape), dtype=torch.float32, generator=generator,
                        device=generator.device) * sigma
+
+
+def rand_gaussian_torus32(generator: torch.Generator, message, sigma: float,
+                          shape) -> torch.Tensor:
+    """Gaussian torus sample centred at `message` with stddev `sigma`:
+    message + dtot32(N(0, 1) * sigma)."""
+    err = rand_gaussian_float(generator, sigma, shape)
+    return torch.as_tensor(message, dtype=torch.int32,
+                           device=err.device) + dtot32(err)

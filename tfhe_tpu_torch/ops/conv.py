@@ -4,8 +4,8 @@ Counterpart of `tfhe_tpu/ops/conv.py`: the limb splits, the prepared
 (compact) product `poly_mul_prepared`, the dense block-Toeplitz bake with
 its matmul and recombination, and the keygen products
 `poly_mul_batched_torus`, `poly_mul_batched_small` and the multi-output
-`poly_mul_batched_torus_multi` of the multi-key ceremony. Not here: the
-pairwise `negacyclic_mul`. A torus word splits into four balanced signed
+`poly_mul_batched_torus_multi` of the multi-key ceremony, and the pairwise
+`negacyclic_mul` for low-volume paths. A torus word splits into four balanced signed
 bytes, so a product with a small operand becomes int8 x int8 -> int32
 matrix products that are exact, recombined with shifts mod 2^32.
 """
@@ -271,3 +271,16 @@ def recombine_block_prods(prods: torch.Tensor, k_out: int,
             if shift < 32:
                 acc += pr[si, :, :, :, j, :].transpose(1, 2) << shift
     return acc.reshape(bsz, k_out, m * t)
+
+
+def negacyclic_mul(x_small: torch.Tensor, y_torus: torch.Tensor) -> torch.Tensor:
+    """Pairwise exact negacyclic product, broadcasting leading dims.
+
+    x_small: [..., N] int32 (the small operand), y_torus: [..., N] int32.
+    Materialises the Toeplitz of y ([..., N, N] int32) and sums the int32
+    products with wraparound (elementwise, so on any device), so reserve
+    it for low-volume paths (key ceremonies, tests).
+    """
+    toep = negacyclic_toeplitz(y_torus.to(torch.int32))  # [..., N(m), N(r)]
+    return torch.sum(x_small.to(torch.int32).unsqueeze(-1) * toep, dim=-2,
+                     dtype=torch.int32)

@@ -33,3 +33,10 @@ def reverse_polynomial(p: torch.Tensor) -> torch.Tensor:
     sign = torch.full((p.shape[-1],), -1, dtype=p.dtype, device=p.device)
     sign[0] = 1
     return rolled * sign
+
+
+def constant_polynomial(value, n: int,
+                        device: torch.device | str = "cuda") -> torch.Tensor:
+    """The polynomial with every coefficient `value`, int32[n] (the
+    bootstrap's test vector)."""
+    return torch.full((n,), value, dtype=torch.int32, device=device)

@@ -1,7 +1,9 @@
 """TGSW encryption and the signed gadget decomposition.
 
-Counterpart of `tfhe_tpu/tgsw.py` as far as the gate path needs it, with
-the prepared external product that a compact key falls back on. A TGSW
+Counterpart of `tfhe_tpu/tgsw.py`: encryption, the decomposition, and the
+external product against a prepared (`tgsw_extern_mul_prepared`, what a
+compact key falls back on) or a coefficient-domain TGSW operand
+(`tgsw_extern_mul`). A TGSW
 sample is one int32 tensor [..., l, k+1, k+1, N] (decomposition row, TLWE
 row, polynomial index, coefficient).
 """
@@ -125,3 +127,12 @@ def tgsw_extern_mul_prepared(accum: TLweSample, gsw_limbs: torch.Tensor,
     digits = digits.reshape(bsz, kp1 * decomp_length, n)  # j-major
     out = conv.poly_mul_prepared(digits, gsw_limbs, log2_base - 1)
     return TLweSample(out, accum.cv)
+
+
+def tgsw_extern_mul(accum: TLweSample, gsw: torch.Tensor, decomp_length: int,
+                    log2_base: int, balanced: bool = False) -> TLweSample:
+    """External product against a coefficient-domain TGSW sample
+    gsw: int32[l, k+1, k+1, N]; accum batched [B, k+1, N]."""
+    return tgsw_extern_mul_prepared(
+        accum, prepare_tgsw(gsw, decomp_length, log2_base), decomp_length,
+        log2_base, balanced)

@@ -29,6 +29,15 @@ the knobs that choose a path or a key form this package has:
   instead of two. The one knob here that changes results: the many-LUT
   modulus switch rounds to a grid twice as coarse, so the output words
   differ (the decrypted integers do not).
+* `debug`: the opt-in safe mode of `debug.py`: every blind rotation runs
+  both through its dispatcher and through the step-by-step `mux_rotate`
+  loop, raises `FHEDebugError` on any differing word, and returns the
+  loop's result. Off unless asked for.
+
+`result_fingerprint()` is the JSON of the knobs that change results, with
+the reference's keys (`debug`, `pipe_ablate`, `radix_manylut`), so that a
+job checkpoint's fingerprint is the same in both packages. The port has no
+`pipe_ablate` (a TPU timing ablation), so that key is always "".
 
 The environment (`TFHE_TPU_*`, the reference's names) is parsed only here;
 `set_tuning` or the `override(...)` context manager installs an explicit
@@ -43,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
 
 
@@ -58,6 +68,24 @@ class TuningConfig:
     mk_compact: str = "auto"
     mk_progressive: bool = True
     radix_manylut: bool = True
+    debug: bool = False
+
+    RESULT_AFFECTING = ("radix_manylut", "pipe_ablate", "debug")
+
+    @property
+    def pipe_ablate(self) -> str:
+        """The reference's timing-ablation knob, which this package does
+        not have: always off."""
+        return ""
+
+    def result_fingerprint(self) -> str:
+        """The knobs a checkpoint must not silently change under."""
+        return json.dumps({k: getattr(self, k) for k in self.RESULT_AFFECTING},
+                          sort_keys=True)
+
+    def describe(self) -> dict:
+        """Every knob by name, for logs."""
+        return dataclasses.asdict(self)
 
 
 _ENV = {
@@ -71,6 +99,7 @@ _ENV = {
     "mk_compact": "TFHE_TPU_MK_COMPACT",
     "mk_progressive": "TFHE_TPU_MK_PROGRESSIVE",
     "radix_manylut": "TFHE_TPU_RADIX_MANYLUT",
+    "debug": "TFHE_TPU_DEBUG",
 }
 
 _TRUE = ("1", "true", "yes", "on")
@@ -122,3 +151,15 @@ def override(**kwargs):
         yield _OVERRIDE[-1]
     finally:
         _OVERRIDE.pop()
+
+
+# --- environment reads that are not knobs, kept here so that the package
+# reads the environment in one module ---
+
+def env_str(name: str, default: str | None = None) -> str | None:
+    return os.environ.get(name, default)
+
+
+def env_int(name: str, default: int | None = None) -> int | None:
+    raw = os.environ.get(name)
+    return default if raw is None else int(raw)
