@@ -155,7 +155,21 @@ back):
    1, 6 or 8; for (c) in the unsharded rotation, none in the sharded one);
    each rank prints its collective calls, staged bytes and peak memory.
    Any rank's failure or time-out fails the run.
-17. The kernels' JSON line, the card's line, then the result line
+17. The entry points on the card, each a subprocess (`python -m
+   tfhe_tpu_torch.<module>`) after this process frees its tensors: `bench`
+   at 128fast, 128fast8, 128 and 80, batch 4096 (each line with the
+   reference bench.py's eight keys and 4096/4096 correct, its log showing
+   5 rotation launches in the timed layers, the 128fast figure within 5%
+   of phase 4's); `bench_suite`, every section, each bounded by
+   TFHE_SUITE_SECTION_TIMEOUT_S (exit 0, no `section_*` line, the sixteen
+   metric lines, each within its error limit: every output correct, but
+   the radix_preset add (at most 4 wrong, as phase 11) and the lines whose
+   preset fails by design, bounded from its model rate at a 1e-6 tail);
+   `tools.serving_bench` over 128fast, 128fast8 and 80 (every line
+   decrypt-correct at batches 1 to 4096); the six examples with
+   `--production`; `tools.batch_job --params 80 --preempt-after 1` twice
+   (preempted, then resumed to 64/64 correct sums).
+18. The kernels' JSON line, the card's line, then the result line
    {"ok": true, "device": {...}}.
 """
 
@@ -863,30 +877,9 @@ def nand_chain(tp, ck, sk, gen, layers, batch, dev):
 
 
 def reset_counts():
-    from tfhe_tpu_torch.ops import (
-        blind_rotate,
-        cmux_step,
-        compact,
-        fused_step,
-        mk_cmux,
-    )
-    from tfhe_tpu_torch.ops.blind_rotate import blind_rotate_kernel
+    from tfhe_tpu_torch.ops import reset_launches
 
-    wrappers = {
-        "cmux_step_karatsuba": fused_step.cmux_step_karatsuba_kernel,
-        "blind_rotate": blind_rotate_kernel,
-        "blind_rotate_compact": compact.blind_rotate_compact_kernel,
-        "expand_karatsuba_step": compact.expand_step_kernel,
-        "rotate_decompose": cmux_step.rotate_decompose_kernel,
-        "rotate_decompose_rows": blind_rotate.digit_rows_kernel,
-        "cmux_matmul": cmux_step.cmux_matmul_kernel,
-        "cmux_step_sparse": mk_cmux.cmux_step_sparse_kernel,
-        "mk_blind_rotate_chunk": mk_cmux.mk_blind_rotate_chunk_kernel,
-        "mk_blind_rotate_compact": mk_cmux.mk_blind_rotate_compact_kernel,
-    }
-    for fn in wrappers.values():
-        fn.launches = 0
-    return wrappers
+    return reset_launches()
 
 
 def read_counts(wrappers) -> dict:
@@ -2282,6 +2275,270 @@ ROTATE_BATCH = 1024  # 630 host-staged all-reduces a rotation
 DRYRUN_TIMEOUT_S = 300
 
 
+# --- phase 17: the entry points on the card ---
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "params",
+              "security_core_svp_bits", "correct", "of"}
+# The rotation kernel each bench preset's key form runs: the compact key
+# for 128fast8, the baked (Karatsuba) key for the others.
+BENCH_PRESETS = {"128fast": "blind_rotate", "128fast8": "blind_rotate_compact",
+                 "128": "blind_rotate", "80": "blind_rotate"}
+BENCH_AGREE = 0.05  # the 128fast line against phase 4: the same 5 layers
+SECTION_TIMEOUT_S = 240  # TFHE_SUITE_SECTION_TIMEOUT_S: a bound per section
+ENTRY_TIMEOUT_S = 600  # one example, sweep or bench process
+TAIL = 1e-6  # the chance a correct port exceeds a model-derived error limit
+# Model failure rates of the suite's error-counted lines: the 128 preset's
+# radix add ~3.8e-3 a word an add (tfhe_tpu/params.py:237,
+# docs/leveled_mode.md 2b); the reference-fidelity 2-party MK preset ~1.5%
+# a gate (tfhe_tpu/mk/api.py:41, docs/mk_noise_budget.md) and the 4-party
+# preset ~0.02% a gate (sigma_rot 0.034 against the 0.125 margin,
+# docs/mk_noise_budget.md:97); the 8-party and 2-party lownoise presets
+# ~0 (0 errors allowed). Each line's output went through two chained adds
+# or gates: a word or gate is wrong if either failed.
+MODEL_FAIL = {
+    "radix_adder8_words_per_sec": (3.8e-3, "3.8e-3 a word an add"),
+    "mk2_nand_throughput_reference_preset": (0.015, "~1.5% a gate"),
+    "mk4_nand_throughput": (2e-4, "~0.02% a gate"),
+}
+# The suite's lines, section by section (bench_suite.py's metric names).
+SUITE_METRICS = (
+    "single_nand_latency_80bit", "chained_nand_device_latency_80bit",
+    "single_nand_latency_compact_key", "gate_set_correct",
+    "batched_nand_throughput_128bit", "pbs_lut4_throughput_128bit",
+    "adder8_words_per_sec", "radix_adder8_words_per_sec",
+    "batched_nand_throughput_128fast", "batched_nand_throughput_128fast8",
+    "radix_adder8_words_per_sec_radix_preset",
+    "radix_adder8_words_per_sec_reliable", "mk2_nand_throughput",
+    "mk2_nand_throughput_reference_preset", "mk4_nand_throughput",
+    "mk8_nand_throughput")
+# The rotation kernel each suite section's key form runs (rows 1, 6, 8).
+SUITE_KERNELS = {
+    "80bit": ("blind_rotate", "blind_rotate_compact"),
+    "128core": ("blind_rotate",), "fast": ("blind_rotate",),
+    "fast8": ("blind_rotate_compact",), "radix_preset": ("blind_rotate",),
+    "radix_reliable": ("blind_rotate_compact",),
+    "mk2": ("mk_blind_rotate_compact",),
+    "mk2_ref": ("mk_blind_rotate_compact",),
+    "mk4": ("mk_blind_rotate_compact",),
+    "mk8": ("mk_blind_rotate_compact",)}
+FORM_KERNEL = {"baked": "blind_rotate", "compact": "blind_rotate_compact"}
+SWEEP_PRESETS = "128fast,128fast8,80"
+SWEEP_FORMS = {"128fast": ("baked", "compact"), "128fast8": ("compact",),
+               "80": ("baked", "compact")}
+SWEEP_BATCHES = (1, 8, 64, 512, 4096)
+CHAIN_LAYERS = 2 * 8 * len(SWEEP_BATCHES)  # a warm-up and a timed chain
+EXAMPLES = ("multitenant", "tutorial", "pbs_lut", "radix_arithmetic",
+            "multikey", "wire_format")
+
+
+def binomial_limit(n: int, p: float, tail: float = TAIL) -> int:
+    """The least k with P(X > k) < tail for X ~ Binomial(n, p)."""
+    import math
+
+    log_q = math.log1p(-p)
+    cdf, k = 0.0, 0
+    while True:
+        cdf += math.exp(math.lgamma(n + 1) - math.lgamma(k + 1)
+                        - math.lgamma(n - k + 1) + k * math.log(p)
+                        + (n - k) * log_q)
+        if 1.0 - cdf < tail:
+            return k
+        k += 1
+
+
+def run_entry(module: str, *args, env=None, timeout=ENTRY_TIMEOUT_S):
+    """`python -m tfhe_tpu_torch.<module> args` on the card, in a session
+    of its own (on a time-out the whole group is killed: the suite's
+    sections too). Returns (exit code, stdout, stderr, seconds)."""
+    import os
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    full_env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p), **(env or {}))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"tfhe_tpu_torch.{module}", *args], cwd=root,
+        env=full_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        check(False, f"phase 17: {module} {' '.join(args)} passed its "
+                     f"{timeout} s limit")
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def entry_ok(what, rc, out, err, want_rc=0):
+    check(rc == want_rc, f"phase 17: {what} exited {rc} (expected "
+                         f"{want_rc})\n--- stdout\n{out[-3000:]}\n--- "
+                         f"stderr\n{err[-3000:]}")
+
+
+def json_lines(text: str) -> list:
+    return [json.loads(ln) for ln in text.splitlines()
+            if ln.startswith("{")]
+
+
+def logged_launches(err: str, tag: str) -> dict:
+    """The launch counts an entry point logged as "<tag> kernel launches:
+    {...}"."""
+    import ast
+
+    line = next((ln for ln in err.splitlines()
+                 if ln.startswith(f"{tag} kernel launches: ")), None)
+    check(line is not None, f"no kernel launches logged for {tag}")
+    return ast.literal_eval(line.split(": ", 1)[1])
+
+
+def phase17_bench(card, phase4_rate):
+    for which, kernel in BENCH_PRESETS.items():
+        rc, out, err, secs = run_entry(
+            "bench", env={"TFHE_TPU_BENCH_PARAMS": which})
+        entry_ok(f"bench {which}", rc, out, err)
+        rec = json.loads(out.strip().splitlines()[-1])
+        check(set(rec) == BENCH_KEYS, f"bench {which}: keys {sorted(rec)}")
+        check(rec["params"] == which and rec["correct"] == rec["of"] == BATCH,
+              f"bench {which}: {rec['correct']}/{rec['of']} correct")
+        launched = next(ln for ln in err.splitlines()
+                        if ln.startswith("kernel launches in the timed"))
+        check(f"'{kernel}': {LAYERS}" in launched,
+              f"bench {which}: {launched}")
+        line = (f"[17 entry points] bench {which}: {rec['value']} gates/s, "
+                f"{rec['correct']}/{rec['of']} correct, "
+                f"{rec['security_core_svp_bits']} bits, vs_baseline "
+                f"{rec['vs_baseline']} | {launched} | {secs:.1f} s")
+        if which == "128fast":
+            off = rec["value"] / phase4_rate - 1
+            check(abs(off) <= BENCH_AGREE,
+                  f"bench 128fast {rec['value']} gates/s against phase 4's "
+                  f"{phase4_rate:.1f}: {100 * off:+.1f}%")
+            line += (f" | phase 4 {phase4_rate:.1f} gates/s, "
+                     f"{100 * off:+.1f}% (limit {100 * BENCH_AGREE:.0f}%)")
+        print(f"{line} | {card}", flush=True)
+
+
+def suite_limit(rec: dict):
+    """(wrong, most wrong allowed, the limit's source) of a suite line."""
+    name, n = rec["metric"], rec.get("of", rec.get("batch"))
+    if name == "gate_set_correct":
+        return 10 - rec["value"], 0, "10/10 gates"
+    wrong = rec["errors"] if "errors" in rec else rec["of"] - rec["correct"]
+    if name in MODEL_FAIL:
+        rate, what = MODEL_FAIL[name]
+        return (wrong, binomial_limit(n, 1 - (1 - rate)**2),
+                f"{what}, two in a chain, tail {TAIL:g}")
+    if name == "radix_adder8_words_per_sec_radix_preset":
+        return wrong, MAX_WRONG, "as phase 11"
+    return wrong, 0, "every output correct"
+
+
+def phase17_suite(card):
+    from tfhe_tpu_torch import bench_suite
+
+    rc, out, err, secs = run_entry(
+        "bench_suite", timeout=SECTION_TIMEOUT_S * len(bench_suite.SECTIONS),
+        env={"TFHE_SUITE_SECTION_TIMEOUT_S": str(SECTION_TIMEOUT_S)})
+    recs = json_lines(out)
+    failed = [r["metric"] for r in recs if r["metric"].startswith("section_")]
+    check(not failed, f"bench_suite: failed sections {failed}\n"
+                      f"{err[-3000:]}")
+    entry_ok("bench_suite", rc, out, err)
+    check(tuple(r["metric"] for r in recs) == SUITE_METRICS
+          and not any(r.get("small_toy_params") for r in recs),
+          f"bench_suite lines {[r['metric'] for r in recs]}")
+    for r in recs:
+        wrong, most, why = suite_limit(r)
+        limit = f"at most {most} wrong ({why})"
+        check(wrong <= most, f"bench_suite {r['metric']}: {r} breaks its "
+                             f"limit: {limit}")
+        print(f"[17 entry points] suite {json.dumps(r)} | limit: {limit} | "
+              f"{card}", flush=True)
+    for name, kernels in SUITE_KERNELS.items():
+        counts = logged_launches(err, f"[suite] {name}")
+        check(all(counts.get(k, 0) > 0 for k in kernels),
+              f"bench_suite {name}: launches {counts}, expected {kernels}")
+        took = next(ln for ln in err.splitlines()
+                    if ln.startswith(f"[suite] section {name}:"))
+        print(f"[17 entry points] suite section {name}: "
+              f"{took.split('(')[-1].rstrip(')')}, launches {counts} | "
+              f"{card}", flush=True)
+    print(f"[17 entry points] bench_suite: {len(recs)} lines, every section "
+          f"exit 0 (limit {SECTION_TIMEOUT_S} s each) | {secs:.1f} s | "
+          f"{card}", flush=True)
+
+
+def phase17_sweep(card):
+    rc, out, err, secs = run_entry(
+        "tools.serving_bench", timeout=2 * ENTRY_TIMEOUT_S,
+        env={"TFHE_TPU_SERVE_PRESETS": SWEEP_PRESETS})
+    entry_ok("serving_bench", rc, out, err)
+    recs = json_lines(out)
+    want = [(p, f, b) for p in SWEEP_PRESETS.split(",")
+            for f in SWEEP_FORMS[p] for b in SWEEP_BATCHES]
+    got = [(r["preset"], r["form"], r["batch"]) for r in recs]
+    check(got == want, f"serving_bench lines {got}")
+    for r in recs:
+        check(r["correct"] == r["of"], f"serving_bench {r}")
+    for p, f in dict.fromkeys((p, f) for p, f, _ in want):
+        rows = [r for r in recs if (r["preset"], r["form"]) == (p, f)]
+        counts = logged_launches(err, f"{p}/{f}")
+        check(counts.get(FORM_KERNEL[f], 0) == CHAIN_LAYERS,
+              f"serving_bench {p}/{f}: launches {counts}")
+        print(f"[17 entry points] sweep {p} {f}, key {rows[0]['key_mb']} MiB"
+              f", launches {counts} | " + " | ".join(
+                  f"batch {r['batch']}: {r['ms_per_layer']} ms a layer, "
+                  f"{r['gates_per_sec']} gates/s, {r['correct']}/{r['of']}"
+                  for r in rows) + f" | {card}", flush=True)
+    print(f"[17 entry points] serving_bench: {len(recs)} lines, all correct "
+          f"| {secs:.1f} s | {card}", flush=True)
+
+
+def phase17_examples(card):
+    import os
+    import tempfile
+
+    for name in EXAMPLES:
+        rc, out, err, secs = run_entry(f"examples.{name}", "--production")
+        entry_ok(f"example {name}", rc, out, err)
+        shown = " / ".join(ln for ln in out.strip().splitlines()
+                           if not ln.startswith("Trial"))
+        print(f"[17 entry points] example {name} --production: "
+              f"{shown[-400:]} | {secs:.1f} s | {card}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke17_") as tmp:
+        ckpt = os.path.join(tmp, "job.ckpt")
+        argv = ("--params", "80", "--preempt-after", "1", "--ckpt", ckpt)
+        rc, out, err, secs = run_entry("tools.batch_job", *argv)
+        entry_ok("batch_job, first run", rc, out, err, want_rc=17)
+        check("simulated preemption" in out and os.path.exists(ckpt),
+              f"batch_job: no preemption or no checkpoint:\n{out}")
+        first = out.strip().splitlines()
+        rc, out, err, secs2 = run_entry("tools.batch_job", *argv)
+        entry_ok("batch_job, second run", rc, out, err)
+        lines = out.strip().splitlines()
+        check(lines[0].startswith("resuming at batch")
+              and lines[-1].endswith(": 64/64 sums correct")
+              and not os.path.exists(ckpt),
+              f"batch_job: the second run did not resume and finish:\n{out}")
+        print(f"[17 entry points] batch_job --params 80 --preempt-after 1: "
+              f"{first[-2]}, exit 17 ({secs:.1f} s); again: {lines[0]}, "
+              f"{lines[-1]} ({secs2:.1f} s) | {card}", flush=True)
+
+
+def phase17_entry_points(dev, card, phase4_rate):
+    """Each entry point of the port as a subprocess on the card."""
+    fresh_device(dev)  # the entry points share the card with this process
+    t_phase = time.perf_counter()
+    phase17_bench(card, phase4_rate)
+    phase17_suite(card)
+    phase17_sweep(card)
+    phase17_examples(card)
+    print(f"[17 entry points] phase 17 took "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+
+
 def build_earlier(csrc, out_dir):
     """An earlier tree's kernels: its csrc/*.cu compiled (one nvcc per
     source, all started together) and linked into one library under
@@ -2685,6 +2942,7 @@ def main() -> int:
     phase15_jobs_debug_profiling(tp, ks, dev, card, wire)
     del wire
     phase16_multi_device(tp, dev, card, phase4_rate)
+    phase17_entry_points(dev, card, phase4_rate)
 
     for ent in ks.entries.values():
         check(ent["launches"] > 0,
