@@ -169,7 +169,29 @@ back):
    decrypt-correct at batches 1 to 4096); the six examples with
    `--production`; `tools.batch_job --params 80 --preempt-after 1` twice
    (preempted, then resumed to 64/64 correct sums).
-18. The kernels' JSON line, the card's line, then the result line
+18. The last entry-point twins, each a subprocess after this process frees
+   its tensors, but (a): (a) `graft_entry.entry()` in this process:
+   128_fast at batch 16 (ragged rows), its zero-filled key K-major and
+   of phase 4's real key's shapes, one rotation launch, the words a zero
+   key gives (a zero, b the trivial accumulator's extraction, computed
+   without a rotation); (c) `tools.pbs_bench`: 4096/4096, within 5% of
+   phase 10 (both time the second of two LUT calls over 4096 messages);
+   (d) `tools.profile_bootstrap` at the 128 preset x 4096 and the 80-bit
+   preset x 1, 8, 64: from each `trace.json`, kernel time against the
+   traced layer's span (busy share), 2n rotation launches plus the rest,
+   the mean duration of `rotate_decompose_kernel` and `leaf_dots_kernel`,
+   the mean gap between rotation kernels, the host's enqueue time a
+   step and each launch call's lead on its kernel, beside phase 17's
+   unprofiled layer (not a speed: wall time under the profiler); then
+   together (checks of the paths; their rates are read under each
+   other's load): (b) `python -m tfhe_tpu_torch.graft_entry --backend
+   gloo` (`dryrun_multichip(8)`, eight toy ranks sharing cuda:0 over
+   gloo, then `entry()`) and `dryrun_multichip(1)` over NCCL in this
+   process; (e) `tools.scaling_bench`'s default (one rank over NCCL,
+   batch 64 of the 128 preset) and `--virtual-devices 2` (ranks sharing
+   cuda:0 over gloo at d = 1, 2: the path, not a scaling figure); every
+   output correct, one rotation launch a rank.
+19. The kernels' JSON line, the card's line, then the result line
    {"ok": true, "device": {...}}.
 """
 
@@ -1003,7 +1025,11 @@ def phase4_baked(tp, ks, dev, card):
           f"{counts['rotate_decompose_rows']} | peak {peak_gb:.2f} GB | "
           f"real-key rotation "
           f"kernel=plain on {small} | {card}", flush=True)
-    return BATCH * LAYERS / chain_s
+    # the real key's shapes, which entry()'s fake key must have (phase 18)
+    shapes = {"baked": tuple(bk.baked.shape), "depth": bk.depth,
+              "layout": bk.layout,
+              "keyswitch": tuple(ck.keyswitch_key.table_limbs.shape)}
+    return BATCH * LAYERS / chain_s, shapes
 
 
 def phase5_compact(tp, ks, dev, card):
@@ -1473,6 +1499,7 @@ def phase10_pbs(tp, ks, dev, card):
           f"rotation launches {counts} | peak "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB | {card}",
           flush=True)
+    lut_rate = BATCH / lut_s
 
     # The fused step through its own entry point: the rotation of these
     # ciphertexts and 6 more (a ragged last batch tile), one launch per
@@ -1519,6 +1546,7 @@ def phase10_pbs(tp, ks, dev, card):
           f"{plain_ms / bk.n:.3f} ms per step, each step relaid to the "
           f"reference layout outside its timed span) | launches {counts} | "
           f"{card}", flush=True)
+    return lut_rate
 
 
 RADIX_WORDS = 4096
@@ -2346,12 +2374,11 @@ def binomial_limit(n: int, p: float, tail: float = TAIL) -> int:
         k += 1
 
 
-def run_entry(module: str, *args, env=None, timeout=ENTRY_TIMEOUT_S):
-    """`python -m tfhe_tpu_torch.<module> args` on the card, in a session
-    of its own (on a time-out the whole group is killed: the suite's
-    sections too). Returns (exit code, stdout, stderr, seconds)."""
+def start_entry(module: str, *args, env=None):
+    """Start `python -m tfhe_tpu_torch.<module> args` on the card, in a
+    session of its own (so that a kill reaches the whole group: the
+    suite's sections too); `finish_entry` waits for it."""
     import os
-    import signal
 
     root = os.path.dirname(os.path.abspath(__file__))
     full_env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -2361,18 +2388,40 @@ def run_entry(module: str, *args, env=None, timeout=ENTRY_TIMEOUT_S):
         [sys.executable, "-m", f"tfhe_tpu_torch.{module}", *args], cwd=root,
         env=full_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, start_new_session=True)
+    return SimpleNamespace(proc=proc, t0=t0,
+                           what=" ".join((module,) + args))
+
+
+def kill_entry(run):
+    import os
+    import signal
+
+    if run.proc.poll() is None:
+        os.killpg(run.proc.pid, signal.SIGKILL)
+        run.proc.communicate()
+
+
+def finish_entry(run, timeout=ENTRY_TIMEOUT_S):
+    """Wait for a started entry point, at most `timeout` seconds from its
+    start (then its group is killed and the run fails). Returns (exit
+    code, stdout, stderr, seconds)."""
+    left = timeout - (time.perf_counter() - run.t0)
     try:
-        out, err = proc.communicate(timeout=timeout)
+        out, err = run.proc.communicate(timeout=max(left, 0.1))
     except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        check(False, f"phase 17: {module} {' '.join(args)} passed its "
-                     f"{timeout} s limit")
-    return proc.returncode, out, err, time.perf_counter() - t0
+        kill_entry(run)
+        check(False, f"{run.what} passed its {timeout} s limit")
+    return run.proc.returncode, out, err, time.perf_counter() - run.t0
+
+
+def run_entry(module: str, *args, env=None, timeout=ENTRY_TIMEOUT_S):
+    """`start_entry` and `finish_entry`: (exit code, stdout, stderr,
+    seconds)."""
+    return finish_entry(start_entry(module, *args, env=env), timeout)
 
 
 def entry_ok(what, rc, out, err, want_rc=0):
-    check(rc == want_rc, f"phase 17: {what} exited {rc} (expected "
+    check(rc == want_rc, f"{what} exited {rc} (expected "
                          f"{want_rc})\n--- stdout\n{out[-3000:]}\n--- "
                          f"stderr\n{err[-3000:]}")
 
@@ -2393,12 +2442,14 @@ def logged_launches(err: str, tag: str) -> dict:
     return ast.literal_eval(line.split(": ", 1)[1])
 
 
-def phase17_bench(card, phase4_rate):
+def phase17_bench(card, phase4_rate) -> dict:
+    """Each preset's bench line, by preset."""
+    recs = {}
     for which, kernel in BENCH_PRESETS.items():
         rc, out, err, secs = run_entry(
             "bench", env={"TFHE_TPU_BENCH_PARAMS": which})
         entry_ok(f"bench {which}", rc, out, err)
-        rec = json.loads(out.strip().splitlines()[-1])
+        rec = recs[which] = json.loads(out.strip().splitlines()[-1])
         check(set(rec) == BENCH_KEYS, f"bench {which}: keys {sorted(rec)}")
         check(rec["params"] == which and rec["correct"] == rec["of"] == BATCH,
               f"bench {which}: {rec['correct']}/{rec['of']} correct")
@@ -2418,6 +2469,7 @@ def phase17_bench(card, phase4_rate):
             line += (f" | phase 4 {phase4_rate:.1f} gates/s, "
                      f"{100 * off:+.1f}% (limit {100 * BENCH_AGREE:.0f}%)")
         print(f"{line} | {card}", flush=True)
+    return recs
 
 
 def suite_limit(rec: dict):
@@ -2470,7 +2522,8 @@ def phase17_suite(card):
           f"{card}", flush=True)
 
 
-def phase17_sweep(card):
+def phase17_sweep(card) -> list:
+    """The sweep's lines."""
     rc, out, err, secs = run_entry(
         "tools.serving_bench", timeout=2 * ENTRY_TIMEOUT_S,
         env={"TFHE_TPU_SERVE_PRESETS": SWEEP_PRESETS})
@@ -2494,6 +2547,7 @@ def phase17_sweep(card):
                   for r in rows) + f" | {card}", flush=True)
     print(f"[17 entry points] serving_bench: {len(recs)} lines, all correct "
           f"| {secs:.1f} s | {card}", flush=True)
+    return recs
 
 
 def phase17_examples(card):
@@ -2527,16 +2581,274 @@ def phase17_examples(card):
               f"{lines[-1]} ({secs2:.1f} s) | {card}", flush=True)
 
 
-def phase17_entry_points(dev, card, phase4_rate):
-    """Each entry point of the port as a subprocess on the card."""
+def phase17_entry_points(dev, card, phase4_rate) -> dict:
+    """Each entry point of the port as a subprocess on the card; returns
+    the bench lines by preset and the sweep's lines (phase 18 reads
+    them)."""
     fresh_device(dev)  # the entry points share the card with this process
     t_phase = time.perf_counter()
-    phase17_bench(card, phase4_rate)
+    bench = phase17_bench(card, phase4_rate)
     phase17_suite(card)
-    phase17_sweep(card)
+    sweep = phase17_sweep(card)
     phase17_examples(card)
     print(f"[17 entry points] phase 17 took "
           f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+    return {"bench": bench, "sweep": sweep}
+
+
+# --- phase 18: the last entry-point twins ---
+
+PBS_AGREE = 0.05  # pbs_bench against phase 10: the same timed call
+# The profile runs (PROFILE_PARAMS, batch): the reference's default, and
+# the 80-bit preset at the batches whose layers cost the same (section 6).
+PROFILE_RUNS = (("128", BATCH), ("80", 1), ("80", 8), ("80", 64))
+ROTATION_KERNELS = ("rotate_decompose_kernel", "leaf_dots_kernel")
+SCALING_BATCH = 64  # scaling_bench's default per-device batch
+
+
+def phase18_entry(dev, card, real_key):
+    """(a) entry() in this process: the fake key against phase 4's real
+    one, one rotation launch, the words a zero key gives."""
+    from tfhe_tpu_torch import graft_entry
+    from tfhe_tpu_torch.lwe import lwe_noiseless_trivial
+    from tfhe_tpu_torch.numeric import decode_message, encode_message
+    from tfhe_tpu_torch.ops import launches, reset_launches
+    from tfhe_tpu_torch.polynomial import mul_by_monomial
+    from tfhe_tpu_torch.tlwe import (tlwe_extract_sample,
+                                     tlwe_noiseless_trivial)
+
+    fresh_device(dev)
+    t0 = time.perf_counter()
+    fn, (ck, x, y) = graft_entry.entry()
+    bk, ksk = ck.bootstrap_key, ck.keyswitch_key
+    fake = {"baked": tuple(bk.baked.shape), "depth": bk.depth,
+            "layout": bk.layout,
+            "keyswitch": tuple(ksk.table_limbs.shape)}
+    check(fake == real_key and bk.layout == "kmajor",
+          f"entry()'s fake key {fake} against phase 4's real key {real_key}")
+    wrappers = reset_launches()
+    out = fn(ck, x, y)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches(wrappers)
+    check(counts == {"blind_rotate": 1, "rotate_decompose_rows": bk.n},
+          f"entry(): launches {counts}")
+    # A zero key leaves the accumulator as it starts: the trivial one after
+    # the mod switch; its extraction, keyswitched by a zero key, is the
+    # output (a zero, b the extraction's b).
+    params, batch = ck.params, x.b.shape[0]
+    mu = encode_message(1, 8)
+    res = lwe_noiseless_trivial(mu, params.lwe_size, (batch,), dev) - x - y
+    barb = decode_message(res.b, 2 * params.N)
+    testv = torch.full((batch, params.N), mu, dtype=torch.int32, device=dev)
+    want = tlwe_extract_sample(tlwe_noiseless_trivial(
+        mul_by_monomial(testv, -barb), params.k))
+    check(not out.a.any() and torch.equal(out.b, want.b),
+          "entry(): the words differ from a zero key's")
+    print(f"[18 twins] (a) entry(): 128_fast at batch {batch} (ragged rows), "
+          f"fake key K-major {fake['baked']} depth {fake['depth']}, keyswitch "
+          f"limbs {fake['keyswitch']}: phase 4's real key's shapes | "
+          f"launches {counts} | a all zero, b equal word for word to the "
+          f"trivial accumulator's extraction | {secs:.2f} s with the "
+          f"{nbytes(bk.baked) / 1e9:.2f} GB of zeros | {card}", flush=True)
+    del fn, ck, bk, ksk, x, y, out
+    fresh_device(dev)
+
+
+def phase18_beside(card):
+    """(b) and (e), together (checks of the paths: their rates are read
+    under each other's load): the reference's __main__ as a subprocess
+    (dryrun_multichip(8), eight ranks over gloo on this card, then
+    entry()), scaling_bench's default (one rank over NCCL) and with two
+    ranks sharing cuda:0 over gloo, and dryrun_multichip(1) over NCCL in
+    this process."""
+    from tfhe_tpu_torch import graft_entry
+
+    runs = [start_entry("graft_entry", "--backend", "gloo"),
+            start_entry("tools.scaling_bench", "--virtual-devices", "2"),
+            start_entry("tools.scaling_bench")]
+    try:
+        t0 = time.perf_counter()
+        graft_entry.dryrun_multichip(1)
+        one_s = time.perf_counter() - t0
+        rc, out, err, secs = finish_entry(runs[0])
+        shared, default = finish_entry(runs[1]), finish_entry(runs[2])
+    finally:
+        for run in runs:
+            kill_entry(run)
+    entry_ok("graft_entry --backend gloo", rc, out, err)
+    lines = out.strip().splitlines()
+    counts = logged_launches(err, "entry()")
+    check("dryrun_multichip(8): mesh=(4,2) OK" in lines
+          and lines[-1] == "entry(): compiled + ran, out batch (16,)"
+          and counts.get("blind_rotate") == 1,
+          f"graft_entry: {lines}, launches {counts}")
+    print(f"[18 twins] (b) python -m tfhe_tpu_torch.graft_entry --backend "
+          f"gloo: {' / '.join(lines)} | entry() launches {counts} | "
+          f"{secs:.1f} s | {card}", flush=True)
+    print(f"[18 twins] (b) dryrun_multichip(1) over NCCL: OK | {one_s:.1f} s"
+          f" | {card}", flush=True)
+    scaling_checked((), (1,), default, "one rank over NCCL, run beside "
+                    "(b)", card)
+    scaling_checked(("--virtual-devices", "2"), (1, 2), shared,
+                    "ranks sharing cuda:0 over gloo, run beside (b): the "
+                    "path, not a scaling figure", card)
+
+
+def phase18_pbs(card, phase10_rate):
+    """(c) pbs_bench: 4096/4096, within PBS_AGREE of phase 10's rate (both
+    time the second of two LUT calls over 4096 messages)."""
+    import re
+
+    rc, out, err, secs = run_entry("tools.pbs_bench")
+    entry_ok("pbs_bench", rc, out, err)
+    line = out.strip().splitlines()[-1]
+    m = re.fullmatch(r"128_pbs: (\d+) LUT4/s, correct (\d+)/(\d+)", line)
+    check(m is not None and int(m[2]) == int(m[3]) == BATCH,
+          f"pbs_bench: {line!r}")
+    off = int(m[1]) / phase10_rate - 1
+    check(abs(off) <= PBS_AGREE,
+          f"pbs_bench {m[1]} LUT4/s against phase 10's {phase10_rate:.1f}: "
+          f"{100 * off:+.1f}%")
+    print(f"[18 twins] (c) pbs_bench: {line} | phase 10 {phase10_rate:.1f} "
+          f"LUTs/s, {100 * off:+.1f}% (limit {100 * PBS_AGREE:.0f}%) | "
+          f"{secs:.1f} s | {card}", flush=True)
+
+
+def trace_split(events: list, n_steps: int) -> dict:
+    """A traced layer's kernels from its Chrome trace (us): kernel time
+    against the layer's span (its first host op to its last kernel's
+    end), the 2*n rotation launches, their mean durations, the mean gap
+    between consecutive rotation kernels, the span before the rotation's
+    first kernel and after its last, and the host's side: its enqueue
+    time a step and each launch call's lead on its kernel."""
+    import statistics
+
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    check(bool(kernels), "the trace holds no kernel")
+    host = [e["ts"] for e in events if e.get("cat") == "cpu_op"]
+    end = max(e["ts"] + e["dur"] for e in kernels)
+    start = min(host + [kernels[0]["ts"]])
+    rot = [e for e in kernels if any(k in e["name"] for k in ROTATION_KERNELS)]
+    kinds = {k: [e["dur"] for e in rot if k in e["name"]]
+             for k in ROTATION_KERNELS}
+    check(all(len(d) == n_steps for d in kinds.values())
+          and len(rot) == 2 * n_steps,
+          f"rotation launches {[len(d) for d in kinds.values()]}, expected "
+          f"{n_steps} each")
+    gaps = [b["ts"] - (a["ts"] + a["dur"]) for a, b in zip(rot, rot[1:])]
+    calls = {e["args"]["correlation"]: e["ts"] for e in events
+             if e.get("cat") == "cuda_runtime" and "correlation"
+             in e.get("args", {})}
+    leads = [e["ts"] - calls[e["args"]["correlation"]] for e in rot
+             if e.get("args", {}).get("correlation") in calls]
+    rot_calls = sorted(calls[e["args"]["correlation"]] for e in rot
+                       if e.get("args", {}).get("correlation") in calls)
+    busy = sum(e["dur"] for e in kernels)
+    rot_end = rot[-1]["ts"] + rot[-1]["dur"]
+    return {
+        "wall_ms": (end - start) / 1e3, "kernel_ms": busy / 1e3,
+        "busy": busy / (end - start), "launches": len(kernels),
+        "others": len(kernels) - len(rot),
+        "mean_us": {k: statistics.fmean(d) for k, d in kinds.items()},
+        "gap_us": statistics.fmean(gaps),
+        "rotation_ms": (rot_end - rot[0]["ts"]) / 1e3,
+        "rotation_busy": sum(e["dur"] for e in rot)
+        / (rot_end - rot[0]["ts"]),
+        "before_ms": (rot[0]["ts"] - start) / 1e3,
+        "after_ms": (end - rot_end) / 1e3,
+        "enqueue_us": ((rot_calls[-1] - rot_calls[0]) / (len(rot_calls) - 1)
+                       * 2 if len(rot_calls) > 1 else None),
+        "lead_us": (statistics.median(leads), max(leads)) if leads else None,
+    }
+
+
+def phase18_profile(card, entry_lines):
+    """(d) profile_bootstrap at 128 x 4096 and 80 x 1, 8, 64: the split of
+    each traced layer, beside the unprofiled layer of phase 17."""
+    import os
+    import tempfile
+
+    from tfhe_tpu_torch import params as presets
+
+    sweep = {r["batch"]: r["ms_per_layer"] for r in entry_lines["sweep"]
+             if (r["preset"], r["form"]) == ("80", "baked")}
+    unprofiled = {("128", BATCH): BATCH * 1e3
+                  / entry_lines["bench"]["128"]["value"],
+                  **{("80", b): ms for b, ms in sweep.items()}}
+    heads = ("measured: ", "byte-MACs: ", "HBM bytes: ", "ALU elems: ")
+    for which, batch in PROFILE_RUNS:
+        n_steps = {"128": presets.tfhe_parameters_128,
+                   "80": presets.tfhe_parameters_80}[which]().lwe_size
+        with tempfile.TemporaryDirectory(prefix="chip_smoke18_") as tmp:
+            rc, out, err, secs = run_entry(
+                "tools.profile_bootstrap", str(batch), tmp,
+                env={"PROFILE_PARAMS": which})
+            entry_ok(f"profile_bootstrap {which} {batch}", rc, out, err)
+            lines = out.strip().splitlines()[-4:]
+            check([ln[:len(h)] for ln, h in zip(lines, heads)] == list(heads),
+                  f"profile_bootstrap {which} {batch}: {lines}")
+            with open(os.path.join(tmp, "trace.json")) as f:
+                split = trace_split(json.load(f)["traceEvents"], n_steps)
+        ref_ms = unprofiled[(which, batch)]
+        lead = ("n/a (no launch calls in the trace)" if split["lead_us"]
+                is None else f"median {split['lead_us'][0]:.1f} us, max "
+                f"{split['lead_us'][1]:.1f} us")
+        enqueue = ("n/a" if split["enqueue_us"] is None
+                   else f"{split['enqueue_us']:.2f} us")
+        print(f"[18 profile] PROFILE_PARAMS={which} batch {batch}: traced "
+              f"layer {split['wall_ms']:.3f} ms from its first host op to its "
+              f"last kernel, kernels {split['kernel_ms']:.3f} ms: busy "
+              f"{100 * split['busy']:.1f}% | {split['launches']} launches = "
+              f"2 x {n_steps} rotation + {split['others']} others | "
+              f"rotate_decompose {split['mean_us'][ROTATION_KERNELS[0]]:.2f} "
+              f"us, leaf_dots {split['mean_us'][ROTATION_KERNELS[1]]:.2f} us "
+              f"mean, gap between rotation kernels {split['gap_us']:.2f} us "
+              f"mean | rotation {split['rotation_ms']:.3f} ms = "
+              f"{1e3 * split['rotation_ms'] / n_steps:.2f} us a step, busy "
+              f"{100 * split['rotation_busy']:.1f}%; before it "
+              f"{split['before_ms']:.3f} ms, after it {split['after_ms']:.3f} "
+              f"ms | host enqueue {enqueue} "
+              f"a step, launch call's lead on its kernel {lead} | "
+              f"unprofiled layer (phase 17) {ref_ms:.3f} ms = "
+              f"{1e3 * ref_ms / n_steps:.2f} us a step | tool: "
+              f"{' / '.join(lines)} | {secs:.1f} s | {card}", flush=True)
+
+
+def scaling_checked(args, sizes, run, what, card):
+    """A scaling_bench run's checks: exit 0, its size lines, the
+    reference's JSON keys, one rotation launch in every rank."""
+    rc, out, err, secs = run
+    entry_ok(f"scaling_bench {' '.join(args)}", rc, out, err)
+    lines = out.strip().splitlines()
+    rec = json.loads(lines[-1])
+    check(list(rec) == ["metric", "per_device_batch", "rates",
+                        "efficiency_at_max"]
+          and list(rec["rates"]) == list(map(str, sizes))
+          and rec["per_device_batch"] == SCALING_BATCH,
+          f"scaling_bench {' '.join(args)}: {rec}")
+    counts = [logged_launches(err, f"devices={d} rank {i}")
+              for d in sizes for i in range(d)]
+    check(all(c.get("blind_rotate") == 1 for c in counts),
+          f"scaling_bench ranks' launches {counts}")
+    print(f"[18 twins] (e) scaling_bench {' '.join(args) or '(default)'}, "
+          f"128 preset, {what}: {' / '.join(lines)} | every output correct,"
+          f" one rotation launch a rank | {secs:.1f} s | {card}", flush=True)
+
+
+def phase18_twins(dev, card, real_key, phase10_rate, entry_lines):
+    """The last entry-point twins, each a subprocess but (a)'s checks: the
+    timed runs (pbs_bench, the profiles) one at a time, then the dry runs
+    and the scaling runs together."""
+    fresh_device(dev)
+    t_phase = time.perf_counter()
+    phase18_entry(dev, card, real_key)
+    phase18_pbs(card, phase10_rate)
+    phase18_profile(card, entry_lines)
+    phase18_beside(card)
+    print(f"[18 twins] phase 18 took {time.perf_counter() - t_phase:.1f} s | "
+          f"{card}", flush=True)
 
 
 def build_earlier(csrc, out_dir):
@@ -2928,13 +3240,13 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     ks = phase3(gen, card)
     torch.cuda.empty_cache()
-    phase4_rate = phase4_baked(tp, ks, dev, card)
+    phase4_rate, real_key = phase4_baked(tp, ks, dev, card)
     phase5_compact(tp, ks, dev, card)
     phase6_three_forms(tp, ks, dev, card)
     phase7_default_preset(tp, dev, card)
     phase8_mk_two_party(tp, ks, dev, card)
     phase9_mk_more_parties(tp, dev, card)
-    phase10_pbs(tp, ks, dev, card)
+    phase10_rate = phase10_pbs(tp, ks, dev, card)
     phase11_radix(tp, dev, card)
     phase12_radix_reliable(tp, dev, card)
     phase13_circuits_netlist(tp, dev, card)
@@ -2942,7 +3254,8 @@ def main() -> int:
     phase15_jobs_debug_profiling(tp, ks, dev, card, wire)
     del wire
     phase16_multi_device(tp, dev, card, phase4_rate)
-    phase17_entry_points(dev, card, phase4_rate)
+    entry_lines = phase17_entry_points(dev, card, phase4_rate)
+    phase18_twins(dev, card, real_key, phase10_rate, entry_lines)
 
     for ent in ks.entries.values():
         check(ent["launches"] > 0,

@@ -64,9 +64,11 @@ TIMEOUT_S = 600  # the command line's limit on its ranks
 # --- the launcher ---
 
 
-def launch(argv: list, world: int, timeout: float) -> list:
-    """Start `world` ranks of this module with `argv` (plus `--rank i`),
-    wait at most `timeout` seconds, and return each rank's result dict.
+def launch(argv: list, world: int, timeout: float,
+           module: str = "tfhe_tpu_torch.parallel.dryrun") -> list:
+    """Start `world` ranks of `module` (this one by default) with `argv`
+    (plus `--rank i`), wait at most `timeout` seconds, and return each
+    rank's result dict: the last line of its stdout that starts with "{".
     Raises RuntimeError on a rank that fails or a time limit that
     passes, after killing every rank still running."""
     with tempfile.TemporaryDirectory(prefix="tfhe_dryrun_") as tmp:
@@ -82,8 +84,7 @@ def launch(argv: list, world: int, timeout: float) -> list:
             err = open(os.path.join(tmp, f"rank{rank}.err"), "w+")
             logs.append((out, err))
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "tfhe_tpu_torch.parallel.dryrun",
-                 *argv, "--rank", str(rank)],
+                [sys.executable, "-m", module, *argv, "--rank", str(rank)],
                 env=dict(env, TFHE_PID=str(rank)), stdout=out, stderr=err))
         deadline = time.monotonic() + timeout
         try:
@@ -115,13 +116,15 @@ def launch(argv: list, world: int, timeout: float) -> list:
     return results
 
 
-def default_plan(tmp: str, device: str, data: int, model: int) -> list:
-    """Toy key and NAND inputs from SEED (a batch of 4 a rank), written
-    to `tmp`; one NAND case at mesh (data, model)."""
+def default_plan(tmp: str, device: str, data: int, model: int,
+                 batch: int | None = None) -> list:
+    """Toy key and NAND inputs x = (i % 2 == 0), y = ~x from SEED (batch
+    default: 4 a rank), written to `tmp`; one NAND case at mesh (data,
+    model)."""
     import tfhe_tpu_torch as tp
     from tfhe_tpu_torch.utils import serialization as ser
 
-    batch = 4 * data * model
+    batch = batch or 4 * data * model
     gen = torch.Generator(device=device).manual_seed(SEED)
     sk, ck = tp.make_key_pair(gen, tp.tfhe_parameters_toy())
     bits = torch.arange(batch, device=device) % 2 == 0
