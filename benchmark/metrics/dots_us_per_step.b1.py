@@ -1,0 +1,17 @@
+"""Device microseconds of the dots kernel (kernels named `*dots*` that
+the rotation launched) a rotation step, over the traced requests' steps
+(closed loop)."""
+
+from benchmark import counts
+
+
+def read(run):
+    view = run.trace
+    if run.loop != "closed" or view is None or not view.units:
+        return None
+    dots = [op for op in view.launched_in("layer.rotation")
+            if "dots" in op[2] and view.unit_of(op) is not None]
+    if not dots:
+        return None
+    steps = len(view.units) * counts.steps_per_rotation(run.config)
+    return 1e6 * view.seconds(dots) / steps
