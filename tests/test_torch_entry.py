@@ -89,6 +89,7 @@ def test_bench_line_has_the_reference_keys(monkeypatch, capsys):
     assert rec["correct"] == rec["of"] == 8
     assert rec["value"] > 0 and rec["security_core_svp_bits"] > 0
     assert "device=cpu" in out.err
+    assert "builds through the first call, host s: {" in out.err
 
 
 @pytest.mark.parametrize("section", [s for s in SUITE_METRICS if s != "mk8"])

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from tfhe_tpu_torch.mk.internals import active_plan
-from tfhe_tpu_torch.ops import compact, fused_step
+from tfhe_tpu_torch.ops import compact, fused_step, kernel_wrappers, launches
 from tfhe_tpu_torch.ops.blind_rotate import (
     blind_rotate_plain,
     digit_rows_plain,
@@ -238,13 +238,14 @@ def test_fused_kernel_refuses_the_reference_layout():
     k1, n, l, b, depth = FUSED_PLANS["128_fast"]
     rng = np.random.default_rng(3)
     acc, e_step, bara, kw = fused_case(rng, k1, n, l, b, depth, 4)
-    before = fused_step.cmux_step_karatsuba_kernel.launches
+    before = launches(kernel_wrappers()).get("cmux_step_karatsuba", 0)
     with pytest.raises(ValueError, match="reference layout"):
         fused_step.cmux_step_karatsuba_kernel(acc, e_step, bara, **kw)
     with pytest.raises(ValueError, match="CUDA"):  # K-major, but on the CPU
         fused_step.cmux_step_karatsuba_kernel(acc, to_kmajor(e_step), bara,
                                               **kw)
-    assert fused_step.cmux_step_karatsuba_kernel.launches == before
+    assert launches(kernel_wrappers()).get("cmux_step_karatsuba", 0) \
+        == before
 
 
 # --- on a CUDA card ---

@@ -21,8 +21,9 @@ Env knobs: TFHE_TPU_BENCH_BATCH (default 4096 on the card, 8 with
 (128fast|128|128fast8|80|toy; default 128fast). The timed region is
 iters + 1 chained `gate_nand` layers, issued from the host and ended by a
 synchronize; one untimed layer before it builds and loads the kernels.
-The log on stderr names the device and the kernel launches of the timed
-layers (the wrappers' counters).
+The log on stderr names the device, the host seconds of each table and
+library built through the first layer (`built.*`), and the counters of the
+timed layers: kernel launches, the rotation's path, any table built again.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import torch
 
 from . import api, gates, tuning
 from . import params as presets
-from .ops import launches, reset_launches
+from .ops import build_seconds, launches, reset_launches
 from .tools.security_estimate import estimate_preset
 from .utils.entry import (
     add_device_argument,
@@ -108,6 +109,7 @@ def main(argv=None) -> int:
     gates.gate_nand(ck, ct_x, ct_y)
     barrier(dev)
     log(f"first call (compile + run): {time.perf_counter() - t0:.1f}s")
+    log(f"builds through the first call, host s: {build_seconds()}")
 
     wrappers = reset_launches()
     t0 = time.perf_counter()

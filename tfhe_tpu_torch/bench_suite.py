@@ -29,8 +29,8 @@ default 5400); a failed section prints a `section_<name>` line with value
 
 TFHE_SUITE_SMALL=1 runs toy parameters at small batches, and every line
 then carries "small_toy_params": true. Nothing shrinks unless asked. The
-log on stderr gives each section's kernel launches (the wrappers'
-counters).
+log on stderr gives each section's counters (kernel launches, rotation
+paths, table builds) and the host seconds of its table builds.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ import torch
 from . import api, circuits, gates, mk, pbs, radix, tuning
 from . import params as presets
 from .bench import nand_chain, plain_nand
-from .ops import launches, reset_launches
+from .ops import build_seconds, launches, reset_launches
 from .utils.entry import (
     add_device_argument,
     barrier,
@@ -461,6 +461,7 @@ def main(argv=None) -> int:
         wrappers = reset_launches()
         SECTIONS[name](run)
         log(f"[suite] {name} kernel launches: {launches(wrappers)}")
+        log(f"[suite] {name} builds, host s: {build_seconds()}")
     return 0
 
 

@@ -20,6 +20,7 @@ import dataclasses
 import torch
 
 from . import polynomial
+from .instrument import count, span
 from .keyswitch import KeyswitchKey, keyswitch
 from .lwe import LweSample
 from .noise import blind_rotate_var
@@ -172,11 +173,18 @@ def blind_rotate(accum: TLweSample, bk: BootstrapKey,
     """Multiply the accumulator by X^{sum_i bara_i * s_i} via n CMUX steps.
     accum: [B, k+1, N]; bara: int32[B, n]. Under `tuning.debug` the
     rotation is held against the step-by-step loop (debug.py), whose result
-    it returns."""
+    it returns. Runs in a `tfhe.rotation` span (under `tuning.debug`, the
+    rotation held against the loop does) and counts `path.<form>`."""
     if get_tuning().debug:
         from .debug import crosscheck_blind_rotate
 
         return crosscheck_blind_rotate(accum, bk, bara)
+    with span("tfhe.rotation"):
+        return _blind_rotate(accum, bk, bara)
+
+
+def _blind_rotate(accum: TLweSample, bk: BootstrapKey,
+                  bara: torch.Tensor) -> TLweSample:
     l, b, t = bk.decomp_length, bk.log2_base, bk.block
     acc = accum.a.contiguous()
     bara_t = bara.to(torch.int32).transpose(0, 1).contiguous()  # [n, B]
@@ -185,18 +193,22 @@ def blind_rotate(accum: TLweSample, bk: BootstrapKey,
         # reference, depth 0 with M > 1 has no expansion path and runs the
         # prepared external product step by step.
         if acc.is_cuda or bk.depth or bk.polynomial_degree == t:
+            count("path.compact")
             out_a = blind_rotate_compact(acc, bk.baked, bara_t, l=l, b=b,
                                          t=t, plan=bk.plan,
                                          balanced=bk.balanced)
         else:
+            count("path.plain")
             out_a = acc
             for limbs_i, bara_i in zip(bk.baked, bara_t):
                 out_a = mux_rotate(TLweSample(out_a, accum.cv), limbs_i,
                                    bara_i, l, b, bk.balanced).a
     elif bk.depth:
+        count("path.baked")
         out_a = blind_rotate_baked(acc, bk.baked, bara_t, l=l, b=b, t=t,
                                    plan=bk.plan, balanced=bk.balanced)
     else:
+        count("path.dense")
         out_a = blind_rotate_dense(acc, bk.baked, bara_t, l=l, b=b, t=t,
                                    balanced=bk.balanced)
     cv = accum.cv + blind_rotate_var(
@@ -205,29 +217,46 @@ def blind_rotate(accum: TLweSample, bk: BootstrapKey,
     return TLweSample(out_a, cv)
 
 
+def _test_accumulator(v: torch.Tensor, barb: torch.Tensor,
+                      mask_size: int) -> TLweSample:
+    """The trivial accumulator of test polynomial v rotated by -barb."""
+    testvectbis = polynomial.mul_by_monomial(v, -barb.to(torch.int32))
+    return tlwe_noiseless_trivial(testvectbis, mask_size)
+
+
+def _rotate_and_extract(accum: TLweSample, bk: BootstrapKey,
+                        bara: torch.Tensor) -> LweSample:
+    accum = blind_rotate(accum, bk, bara)
+    with span("tfhe.extract"):
+        return tlwe_extract_sample(accum)
+
+
 def blind_rotate_and_extract(v: torch.Tensor, bk: BootstrapKey,
                              barb: torch.Tensor,
                              bara: torch.Tensor) -> LweSample:
     """LWE(v_p) with p = barb - sum(bara_i s_i) mod 2N.
     v: int32[B, N] test polynomial; barb: int32[B]; bara: int32[B, n]."""
-    testvectbis = polynomial.mul_by_monomial(v, -barb.to(torch.int32))
-    accum = tlwe_noiseless_trivial(testvectbis, bk.mask_size)
-    return tlwe_extract_sample(blind_rotate(accum, bk, bara))
+    with span("tfhe.modswitch"):
+        accum = _test_accumulator(v, barb, bk.mask_size)
+    return _rotate_and_extract(accum, bk, bara)
 
 
 def bootstrap_wo_keyswitch(bk: BootstrapKey, mu: int,
                            x: LweSample) -> LweSample:
     """LWE(mu) iff phase(x) > 0 else LWE(-mu), in the extracted (k*N)-dim
-    space. x: any batch shape [..., n]."""
+    space. x: any batch shape [..., n]. Its stages run in the spans
+    `tfhe.modswitch`, `tfhe.rotation` and `tfhe.extract`."""
     p_degree = bk.polynomial_degree
     batch_shape = x.b.shape
     flat_a = x.a.reshape(-1, x.a.shape[-1])
     flat_b = x.b.reshape(-1)
-    bara = decode_message(flat_a, p_degree * 2)  # [B, n]: mod switch to 2N
-    barb = decode_message(flat_b, p_degree * 2)  # [B]
-    testvect = torch.full(flat_b.shape + (p_degree,), mu, dtype=torch.int32,
-                          device=flat_b.device)
-    out = blind_rotate_and_extract(testvect, bk, barb, bara)
+    with span("tfhe.modswitch"):
+        bara = decode_message(flat_a, p_degree * 2)  # [B, n]: mod switch to 2N
+        barb = decode_message(flat_b, p_degree * 2)  # [B]
+        testvect = torch.full(flat_b.shape + (p_degree,), mu,
+                              dtype=torch.int32, device=flat_b.device)
+        accum = _test_accumulator(testvect, barb, bk.mask_size)
+    out = _rotate_and_extract(accum, bk, bara)
     return LweSample(out.a.reshape(batch_shape + (out.a.shape[-1],)),
                      out.b.reshape(batch_shape), out.cv.reshape(batch_shape))
 

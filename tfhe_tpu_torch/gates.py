@@ -2,7 +2,8 @@
 
 Counterpart of `tfhe_tpu/gates.py`. Inputs and outputs are LWE samples
 with message +-1/8 (positive phase is `true`). Every two-input gate is one
-affine combination plus one bootstrap with mu = 1/8.
+affine combination plus one bootstrap with mu = 1/8. Every bootstrapped
+gate runs in a `tfhe.gate` span (`instrument.spanned`).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import torch
 
 from .api import CloudKey
 from .bootstrap import bootstrap, bootstrap_wo_keyswitch
+from .instrument import spanned
 from .keyswitch import keyswitch
 from .lwe import LweSample, lwe_noiseless_trivial
 from .numeric import encode_message
@@ -19,6 +21,7 @@ _MU = encode_message(1, 8)  # +1/8
 _NEG_MU = encode_message(-1, 8)  # -1/8
 _QUARTER = encode_message(1, 4)  # +1/4
 _NEG_QUARTER = encode_message(-1, 4)  # -1/4
+_gate = spanned("tfhe.gate")
 
 
 def _trivial(mu: int, x: LweSample) -> LweSample:
@@ -29,26 +32,31 @@ def _bootstrap(ck: CloudKey, result: LweSample) -> LweSample:
     return bootstrap(ck.bootstrap_key, ck.keyswitch_key, _MU, result)
 
 
+@_gate
 def gate_nand(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     """NAND = bootstrap(1/8 - x - y)."""
     return _bootstrap(ck, _trivial(_MU, x) - x - y)
 
 
+@_gate
 def gate_or(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     """OR = bootstrap(1/8 + x + y)."""
     return _bootstrap(ck, _trivial(_MU, x) + x + y)
 
 
+@_gate
 def gate_and(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     """AND = bootstrap(-1/8 + x + y)."""
     return _bootstrap(ck, _trivial(_NEG_MU, x) + x + y)
 
 
+@_gate
 def gate_xor(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     """XOR = bootstrap(1/4 + 2(x + y))."""
     return _bootstrap(ck, _trivial(_QUARTER, x) + (x + y) * 2)
 
 
+@_gate
 def gate_xnor(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     """XNOR = bootstrap(-1/4 - 2(x + y))."""
     return _bootstrap(ck, _trivial(_NEG_QUARTER, x) - (x + y) * 2)
@@ -71,31 +79,37 @@ def gate_constant(ck: CloudKey, value, batch_shape=()) -> LweSample:
     return lwe_noiseless_trivial(mu, ck.params.lwe_size, batch_shape, device)
 
 
+@_gate
 def gate_nor(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     """NOR = bootstrap(-1/8 - x - y)."""
     return _bootstrap(ck, _trivial(_NEG_MU, x) - x - y)
 
 
+@_gate
 def gate_andny(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     """AND(NOT(x), y) = bootstrap(-1/8 - x + y)."""
     return _bootstrap(ck, _trivial(_NEG_MU, x) - x + y)
 
 
+@_gate
 def gate_andyn(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     """AND(x, NOT(y)) = bootstrap(-1/8 + x - y)."""
     return _bootstrap(ck, _trivial(_NEG_MU, x) + x - y)
 
 
+@_gate
 def gate_orny(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     """OR(NOT(x), y) = bootstrap(1/8 - x + y)."""
     return _bootstrap(ck, _trivial(_MU, x) - x + y)
 
 
+@_gate
 def gate_oryn(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     """OR(x, NOT(y)) = bootstrap(1/8 + x - y)."""
     return _bootstrap(ck, _trivial(_MU, x) + x - y)
 
 
+@_gate
 def gate_mux(ck: CloudKey, x: LweSample, y: LweSample,
              z: LweSample) -> LweSample:
     """MUX(x, y, z) = x ? y : z via 2 blind rotations and 1 keyswitch; the

@@ -168,7 +168,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda",
 
 
 def main(argv=None) -> int:
-    from .ops import launches, reset_launches
+    from .ops import build_seconds, launches, reset_launches
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_device_argument(ap)
@@ -184,6 +184,7 @@ def main(argv=None) -> int:
     out = fn(*fn_args)
     barrier(dev)
     log(f"entry() kernel launches: {launches(wrappers)}")
+    log(f"entry() builds, host s: {build_seconds()}")
     print("entry(): compiled + ran, out batch", tuple(out.b.shape),
           flush=True)
     return 0

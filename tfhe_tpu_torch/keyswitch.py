@@ -14,6 +14,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from .instrument import spanned
 from .lwe import LweSample
 from .noise import keyswitch_var
 from .numeric import dtot32, rand_gaussian_float, rand_uniform_torus32
@@ -125,9 +126,11 @@ def keyswitch_onehot(a: torch.Tensor, decomp_length: int,
     return onehot.reshape(onehot.shape[:-3] + (-1,))
 
 
+@spanned("tfhe.keyswitch")
 def keyswitch(ks: KeyswitchKey, sample: LweSample) -> LweSample:
     """Switch a batch of n_in-dim samples to the out-key's n_out-dim space:
-    (0, b) - sum_{i,j} ks[digit_ij, j, i], as one int8 contraction."""
+    (0, b) - sum_{i,j} ks[digit_ij, j, i], as one int8 contraction. Runs
+    in a `tfhe.keyswitch` span."""
     l, b = ks.decomp_length, ks.log2_base
     base = 1 << b
     cols_p = ks.table_limbs.shape[-1] // 4

@@ -3,11 +3,13 @@
 Counterpart of `tfhe_tpu/mk/gates.py`. The affine-plus-bootstrap structure
 is the single-key gate library's (`gates.py`), on MK-LWE samples with
 message +-1/8: every two-input gate is one affine combination plus one MK
-bootstrap with mu = 1/8.
+bootstrap with mu = 1/8. Every bootstrapped gate runs in a `tfhe.gate`
+span (`instrument.spanned`).
 """
 
 from __future__ import annotations
 
+from ..instrument import spanned
 from ..numeric import encode_message
 from .api import MKCloudKey
 from .internals import (
@@ -22,6 +24,7 @@ _MU = encode_message(1, 8)  # +1/8
 _NEG_MU = encode_message(-1, 8)  # -1/8
 _QUARTER = encode_message(1, 4)  # +1/4
 _NEG_QUARTER = encode_message(-1, 4)  # -1/4
+_gate = spanned("tfhe.gate")
 
 
 def _trivial(mu: int, ck: MKCloudKey, x: MKLweSample) -> MKLweSample:
@@ -35,6 +38,7 @@ def _bootstrap(ck: MKCloudKey, result: MKLweSample,
                         segments)
 
 
+@_gate
 def mk_gate_nand(ck: MKCloudKey, x: MKLweSample, y: MKLweSample,
                  segments: int = 1) -> MKLweSample:
     """NAND = mk_bootstrap(1/8 - x - y). `segments` is accepted for the
@@ -42,11 +46,13 @@ def mk_gate_nand(ck: MKCloudKey, x: MKLweSample, y: MKLweSample,
     return _bootstrap(ck, _trivial(_MU, ck, x) - x - y, segments)
 
 
+@_gate
 def mk_gate_and(ck: MKCloudKey, x: MKLweSample, y: MKLweSample) -> MKLweSample:
     """AND = mk_bootstrap(-1/8 + x + y)."""
     return _bootstrap(ck, _trivial(_NEG_MU, ck, x) + x + y)
 
 
+@_gate
 def mk_gate_or(ck: MKCloudKey, x: MKLweSample, y: MKLweSample) -> MKLweSample:
     """OR = mk_bootstrap(1/8 + x + y)."""
     return _bootstrap(ck, _trivial(_MU, ck, x) + x + y)
@@ -57,6 +63,7 @@ def mk_gate_not(ck: MKCloudKey, x: MKLweSample) -> MKLweSample:
     return -x
 
 
+@_gate
 def mk_gate_xor(ck: MKCloudKey, x: MKLweSample, y: MKLweSample) -> MKLweSample:
     """XOR = mk_bootstrap(1/4 + 2(x + y)). The doubling doubles the input
     noise, so XOR and XNOR fail more often than NAND where the margin is
@@ -64,41 +71,48 @@ def mk_gate_xor(ck: MKCloudKey, x: MKLweSample, y: MKLweSample) -> MKLweSample:
     return _bootstrap(ck, _trivial(_QUARTER, ck, x) + (x + y) * 2)
 
 
+@_gate
 def mk_gate_xnor(ck: MKCloudKey, x: MKLweSample,
                  y: MKLweSample) -> MKLweSample:
     """XNOR = mk_bootstrap(-1/4 - 2(x + y))."""
     return _bootstrap(ck, _trivial(_NEG_QUARTER, ck, x) - (x + y) * 2)
 
 
+@_gate
 def mk_gate_nor(ck: MKCloudKey, x: MKLweSample, y: MKLweSample) -> MKLweSample:
     """NOR = mk_bootstrap(-1/8 - x - y)."""
     return _bootstrap(ck, _trivial(_NEG_MU, ck, x) - x - y)
 
 
+@_gate
 def mk_gate_andny(ck: MKCloudKey, x: MKLweSample,
                   y: MKLweSample) -> MKLweSample:
     """AND(NOT(x), y) = mk_bootstrap(-1/8 - x + y)."""
     return _bootstrap(ck, _trivial(_NEG_MU, ck, x) - x + y)
 
 
+@_gate
 def mk_gate_andyn(ck: MKCloudKey, x: MKLweSample,
                   y: MKLweSample) -> MKLweSample:
     """AND(x, NOT(y)) = mk_bootstrap(-1/8 + x - y)."""
     return _bootstrap(ck, _trivial(_NEG_MU, ck, x) + x - y)
 
 
+@_gate
 def mk_gate_orny(ck: MKCloudKey, x: MKLweSample,
                  y: MKLweSample) -> MKLweSample:
     """OR(NOT(x), y) = mk_bootstrap(1/8 - x + y)."""
     return _bootstrap(ck, _trivial(_MU, ck, x) - x + y)
 
 
+@_gate
 def mk_gate_oryn(ck: MKCloudKey, x: MKLweSample,
                  y: MKLweSample) -> MKLweSample:
     """OR(x, NOT(y)) = mk_bootstrap(1/8 + x - y)."""
     return _bootstrap(ck, _trivial(_MU, ck, x) + x - y)
 
 
+@_gate
 def mk_gate_mux(ck: MKCloudKey, x: MKLweSample, y: MKLweSample,
                 z: MKLweSample) -> MKLweSample:
     """MUX(x, y, z) = x ? y : z via 2 MK blind rotations and 1 MK

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from .. import polynomial
+from ..instrument import count, span, spanned
 from ..keyswitch import keyswitch_onehot
 from ..noise import keyswitch_var, mk_blind_rotate_var
 from ..numeric import (
@@ -341,11 +342,13 @@ def build_extern_operand_sparse(exp: MKTGswExpSample, party: int,
 # --- MK keyswitch ---
 
 
+@spanned("tfhe.keyswitch")
 def mk_keyswitch(ks_keys, sample: MKLweSample) -> MKLweSample:
     """Per-party keyswitch of each mask column: the single-key one-hot int8
     contraction, once per party (there is no int8 batched matmul on CUDA;
     the arithmetic per party is the single-key `keyswitch`'s, so the result
-    is bit-identical to the reference's batched contraction).
+    is bit-identical to the reference's batched contraction). Runs in a
+    `tfhe.keyswitch` span.
 
     ks_keys: `parties` KeyswitchKeys (party-local out keys) of one geometry.
     """
@@ -616,7 +619,8 @@ def _rotate_expand(acc_a: torch.Tensor, bk: MKBootstrapKey,
     party-major, so each party's n-step loop has its own static
     nonzero-block pattern; the knobs choose between one call per party from
     the compact limbs, chunks of pre-expanded steps, and one call per
-    step."""
+    step. Counts `path.mk_compact`, `path.mk_chunk` or `path.mk_step` once
+    for each path its party loops took."""
     l, b, n = bk.decomp_length, bk.log2_base, bk.polynomial_degree
     t = KERNEL_BLOCK
     tuning = get_tuning()
@@ -630,6 +634,7 @@ def _rotate_expand(acc_a: torch.Tensor, bk: MKBootstrapKey,
                 else tuning.mk_mega == "1")
     use_compact = (tuning.mk_compact == "1"
                    or (tuning.mk_compact == "auto" and on_card))
+    paths = set()
 
     for party in range(bk.parties):
         nz_orig, nz_kern, sel, k_act = active_plan(party, bk.parties,
@@ -659,16 +664,19 @@ def _rotate_expand(acc_a: torch.Tensor, bk: MKBootstrapKey,
             s_chunk = chunk_len(n_lwe,
                                 e_step_rows(plan, l, t, nz_kern) * 4 * t)
         if use_compact:
+            paths.add("mk_compact")
             acc_run = mk_blind_rotate_compact(
                 acc_run, select_compact(bk, limbs_p, nz_orig, sel), bara_p,
                 **kw)
         elif s_chunk > 1:
+            paths.add("mk_chunk")
             for s0 in range(0, n_lwe, s_chunk):
                 e_chunk = torch.stack([expand_one(limbs_p[s])
                                        for s in range(s0, s0 + s_chunk)])
                 acc_run = mk_blind_rotate_chunk(
                     acc_run, e_chunk, bara_p[s0:s0 + s_chunk], **kw)
         else:
+            paths.add("mk_step")
             for s in range(n_lwe):
                 acc_run = cmux_step_sparse(acc_run, expand_one(limbs_p[s]),
                                            bara_p[s], **kw)
@@ -679,6 +687,8 @@ def _rotate_expand(acc_a: torch.Tensor, bk: MKBootstrapKey,
                                acc_run[:, -1:]], dim=1)
         else:
             acc_a = acc_run
+    for path in paths:
+        count(f"path.{path}")
     return acc_a
 
 
@@ -697,8 +707,17 @@ def mk_blind_rotate(accum: TLweSample, bk: MKBootstrapKey,
     every bootstrap: the accumulator is the noiseless-trivial test vector).
     This allows the triangular rotation (`active_plan`, under
     `tuning.mk_progressive`). Pass False for an arbitrary accumulator.
+
+    Runs in a `tfhe.rotation` span; the loop of the prepared or baked key
+    (no expansion) counts `path.mk_plain`.
     """
     del segments
+    with span("tfhe.rotation"):
+        return _mk_blind_rotate(accum, bk, bara, trivial_masks)
+
+
+def _mk_blind_rotate(accum: TLweSample, bk: MKBootstrapKey,
+                     bara: torch.Tensor, trivial_masks: bool) -> TLweSample:
     l, b = bk.decomp_length, bk.log2_base
     steps = bk.parties * bk.lwe_size
     bsz = accum.a.shape[0]
@@ -717,6 +736,7 @@ def mk_blind_rotate(accum: TLweSample, bk: MKBootstrapKey,
                          f"which needs N = {bk.polynomial_degree} to be a "
                          f"multiple of {KERNEL_BLOCK} with N/{KERNEL_BLOCK} "
                          ">= 2")
+    count("path.mk_plain")
     acc_a = accum.a
     for party in range(bk.parties):
         bara_p = bara_t[party * bk.lwe_size:(party + 1) * bk.lwe_size]
@@ -737,25 +757,41 @@ def mk_blind_rotate_and_extract(v: torch.Tensor, bk: MKBootstrapKey,
                                 segments: int = 1) -> MKLweSample:
     """v: int32[B, N] test polynomial; barb: int32[B]; bara:
     int32[B, parties, n]."""
+    with span("tfhe.modswitch"):
+        accum = _mk_test_accumulator(v, barb, bk.parties)
+    return _mk_rotate_and_extract(accum, bk, bara, segments)
+
+
+def _mk_test_accumulator(v: torch.Tensor, barb: torch.Tensor,
+                         parties: int) -> TLweSample:
     testvectbis = polynomial.mul_by_monomial(v, -barb.to(torch.int32))
-    accum = mk_tlwe_noiseless_trivial(testvectbis, bk.parties)
+    return mk_tlwe_noiseless_trivial(testvectbis, parties)
+
+
+def _mk_rotate_and_extract(accum: TLweSample, bk: MKBootstrapKey,
+                           bara: torch.Tensor, segments: int) -> MKLweSample:
     accum = mk_blind_rotate(accum, bk, bara, segments)
-    return mk_tlwe_extract_sample(accum)
+    with span("tfhe.extract"):
+        return mk_tlwe_extract_sample(accum)
 
 
 def mk_bootstrap_wo_keyswitch(bk: MKBootstrapKey, mu: int, x: MKLweSample,
                               segments: int = 1) -> MKLweSample:
     """MK-LWE(mu) iff phase(x) > 0 else MK-LWE(-mu), in the extracted
-    N-dim space per party. x: any batch shape [..., parties, n]."""
+    N-dim space per party. x: any batch shape [..., parties, n]. Its
+    stages run in the spans `tfhe.modswitch`, `tfhe.rotation` and
+    `tfhe.extract`."""
     p_degree = bk.polynomial_degree
     batch_shape = tuple(x.b.shape)
     flat_a = x.a.reshape((-1,) + tuple(x.a.shape[-2:]))
     flat_b = x.b.reshape(-1)
-    bara = decode_message(flat_a, p_degree * 2)  # [B, parties, n]
-    barb = decode_message(flat_b, p_degree * 2)  # [B]
-    testvect = torch.full(flat_b.shape + (p_degree,), mu, dtype=torch.int32,
-                          device=flat_b.device)
-    out = mk_blind_rotate_and_extract(testvect, bk, barb, bara, segments)
+    with span("tfhe.modswitch"):
+        bara = decode_message(flat_a, p_degree * 2)  # [B, parties, n]
+        barb = decode_message(flat_b, p_degree * 2)  # [B]
+        testvect = torch.full(flat_b.shape + (p_degree,), mu,
+                              dtype=torch.int32, device=flat_b.device)
+        accum = _mk_test_accumulator(testvect, barb, bk.parties)
+    out = _mk_rotate_and_extract(accum, bk, bara, segments)
     return MKLweSample(out.a.reshape(batch_shape + tuple(out.a.shape[-2:])),
                        out.b.reshape(batch_shape),
                        out.cv.reshape(batch_shape))

@@ -1,11 +1,13 @@
 """Kernels and exact integer contractions of the port."""
 
+from .. import instrument
+
 
 def kernel_wrappers() -> dict:
-    """Every CUDA kernel wrapper of the port, by name. Each adds one to its
-    `.launches` where it launches its kernel (on CUDA tensors), and nowhere
-    else: set them to 0 before a run and read them after to see which
-    kernels the run went through."""
+    """Every CUDA kernel wrapper of the port, by name. Each adds one to the
+    counter of its name (`instrument.count`) where it launches its kernel
+    (on CUDA tensors), and nowhere else: reset the counters before a run
+    and read them after to see which kernels the run went through."""
     from . import blind_rotate, cmux_step, compact, fused_step, mk_cmux
 
     return {
@@ -23,13 +25,22 @@ def kernel_wrappers() -> dict:
 
 
 def reset_launches() -> dict:
-    """Set every wrapper's launch count to 0; returns `kernel_wrappers()`."""
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-    return wrappers
+    """Set every counter of `instrument` to 0; returns `kernel_wrappers()`."""
+    instrument.reset()
+    return kernel_wrappers()
 
 
 def launches(wrappers: dict) -> dict:
-    """The nonzero launch counts of `wrappers`, by name."""
-    return {name: fn.launches for name, fn in wrappers.items() if fn.launches}
+    """The nonzero counters since the reset, by name: the launches of the
+    kernels of `wrappers`, and every other counter of `instrument`
+    (`path.*`, `built.*`). `instrument.counts(wrappers)` is the launches
+    alone."""
+    kernels = kernel_wrappers()
+    return {name: n for name, n in instrument.counts().items()
+            if name in wrappers or name not in kernels}
+
+
+def build_seconds() -> dict:
+    """Host seconds of the cached table and library builds since the
+    reset, by `built.*` counter, to the millisecond."""
+    return {name: round(s, 3) for name, s in instrument.seconds().items()}

@@ -12,13 +12,14 @@ shared-memory report included, is kept beside the library in `build.log`.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from ..instrument import cached_build
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -89,7 +90,7 @@ def build() -> Path:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build("kernel_library")
 def load() -> ctypes.CDLL:
     """Build if needed, then load the library with its C signatures."""
     lib = ctypes.CDLL(str(build()))

@@ -14,8 +14,8 @@ blocks it feeds.
 * `blind_rotate_plain`: a loop of `mux_rotate_karatsuba` in torch ops (the
   reference's XLA path). The CPU path and the oracle for the kernel.
 * `blind_rotate_kernel`: the CUDA wrapper (`csrc/blind_rotate.cu`). It
-  counts its launches in `blind_rotate_kernel.launches`, and raises on a key
-  in the reference layout.
+  counts its launches (`instrument` counter "blind_rotate"), and raises on
+  a key in the reference layout.
 * `blind_rotate_baked`: CPU tensors take the plain version; CUDA tensors
   launch the kernel or raise.
 * `digit_rows_plain` / `digit_rows_kernel` / `digit_rows`: the first launch
@@ -27,10 +27,10 @@ blocks it feeds.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
+from ..instrument import cached_build, count, span
 from ..polynomial import mul_by_monomial
 from ..tgsw import decomp_offset, decompose
 from . import dots
@@ -290,7 +290,7 @@ def digit_row_stores(k1: int, n: int, l: int, b: int, combos,
     return stores
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build("combo_table")
 def combo_table(plan: KaratsubaPlan, p: int, t: int):
     """The combo table as the C entries take it, a host int32 tensor of
     `pack_combos` words: (table, n_combos, lhs_rows)."""
@@ -300,7 +300,7 @@ def combo_table(plan: KaratsubaPlan, p: int, t: int):
             lhs_rows)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build("dots_tables")
 def dots_tables(plan: KaratsubaPlan, k1: int, l: int,
                 t: int) -> dots.DotsTables:
     """`product_tables` as the dots kernel's rows."""
@@ -385,9 +385,9 @@ def digit_rows_kernel(acc: torch.Tensor, bara: torch.Tensor, combos,
     """`digit_rows_plain` through the CUDA kernel alone (C entry
     tfhe_rotate_decompose_rows), the first launch of every rotation step.
     For b > 8 the raw segments are left unwritten (`digit_row_defined`).
-    Launches on the current stream and does not synchronise. `.launches`
-    counts this kernel's launches, those the whole-rotation wrappers make
-    included."""
+    Launches on the current stream and does not synchronise. The
+    `instrument` counter "rotate_decompose_rows" counts this kernel's
+    launches, those the whole-rotation wrappers make included."""
     from . import _build
 
     who = "digit_rows_kernel"
@@ -421,11 +421,8 @@ def digit_rows_kernel(acc: torch.Tensor, bara: torch.Tensor, combos,
             len(words), bsz, k1, n, l, b, m, lhs_rows, offset,
             ctypes.c_void_p(stream))
         raise_on_error(who, lib, err)
-        digit_rows_kernel.launches += 1
+        count("rotate_decompose_rows")
     return lhs
-
-
-digit_rows_kernel.launches = 0
 
 
 def digit_rows(acc: torch.Tensor, bara: torch.Tensor, combos, lhs_rows: int,
@@ -457,19 +454,18 @@ def blind_rotate_kernel(acc: torch.Tensor, e_all: torch.Tensor,
                       device=acc.device)
     if n_steps and bsz:
         stream = torch.cuda.current_stream(acc.device).cuda_stream
-        err = lib.tfhe_blind_rotate(
-            out.data_ptr(), e_all.data_ptr(), bara_t.data_ptr(),
-            lhs.data_ptr(), combos.data_ptr(), n_combos,
-            *dots.dots_args(dots_tables(plan, k1, l, t), bsz, acc.device),
-            bsz, k1, n, l, b, m, n_steps, lhs_rows, plan.total_rows,
-            decomp_offset(l, b, balanced), ctypes.c_void_p(stream))
+        tables = dots.dots_args(dots_tables(plan, k1, l, t), bsz, acc.device)
+        offset = decomp_offset(l, b, balanced)
+        with span("tfhe.enqueue"):
+            err = lib.tfhe_blind_rotate(
+                out.data_ptr(), e_all.data_ptr(), bara_t.data_ptr(),
+                lhs.data_ptr(), combos.data_ptr(), n_combos, *tables, bsz,
+                k1, n, l, b, m, n_steps, lhs_rows, plan.total_rows, offset,
+                ctypes.c_void_p(stream))
         raise_on_error(who, lib, err)
-        blind_rotate_kernel.launches += 1
-        digit_rows_kernel.launches += n_steps  # its first launch of a step
+        count("blind_rotate")
+        count("rotate_decompose_rows", n_steps)  # its first launch of a step
     return out
-
-
-blind_rotate_kernel.launches = 0
 
 
 def blind_rotate_baked(acc: torch.Tensor, e_all: torch.Tensor,

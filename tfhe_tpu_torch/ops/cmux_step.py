@@ -14,8 +14,8 @@ key takes on the card), and raise on the reference layout.
   halves of a step, and the step, in torch ops. `mux_rotate_baked` is the
   reference's own formulation of the step (2M-1 matmuls); the two agree.
 * `rotate_decompose_kernel`, `cmux_matmul_kernel`, `cmux_step_kernel`: the
-  CUDA wrappers (`csrc/cmux_step.cu`); each counts its launches in
-  `.launches`.
+  CUDA wrappers (`csrc/cmux_step.cu`); each counts its launches
+  (`instrument` counters named as in `ops.kernel_wrappers()`).
 * `blind_rotate_dense_plain` / `blind_rotate_dense_kernel`: the n steps in
   a loop on one stream, as the reference scans `cmux_step_pallas`.
 * `cmux_step`, `blind_rotate_dense`: CPU tensors take the plain version;
@@ -25,10 +25,10 @@ key takes on the card), and raise on the reference layout.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
+from ..instrument import cached_build, count, span
 from ..polynomial import mul_by_monomial
 from ..tgsw import decomp_offset, decompose
 from . import dots
@@ -62,7 +62,7 @@ def dense_product_tables(m: int, d_shifts: tuple) -> tuple:
                  for o in range(m) for s, shift in enumerate(d_shifts))
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build("dense_dots_tables")
 def _dense_dots_tables(k1: int, l: int, m: int, d_shifts: tuple,
                        t: int) -> dots.DotsTables:
     return dots.encode_single_key(dense_product_tables(m, d_shifts), k1, m,
@@ -177,23 +177,25 @@ def _on_device(who: str, x: torch.Tensor, ref: torch.Tensor, dtype, shape,
 def _launch_rotate_decompose(lib, acc, bara, buf, dims, l, b, offset):
     bsz, k1, n, m, s_limbs = dims
     stream = torch.cuda.current_stream(acc.device).cuda_stream
-    err = lib.tfhe_rotate_decompose(
-        acc.data_ptr(), bara.data_ptr(), buf.data_ptr(), bsz, k1, n, l, b, m,
-        s_limbs, offset, ctypes.c_void_p(stream))
+    with span("tfhe.enqueue"):
+        err = lib.tfhe_rotate_decompose(
+            acc.data_ptr(), bara.data_ptr(), buf.data_ptr(), bsz, k1, n, l,
+            b, m, s_limbs, offset, ctypes.c_void_p(stream))
     raise_on_error("rotate_decompose_kernel", lib, err)
-    rotate_decompose_kernel.launches += 1
+    count("rotate_decompose")
 
 
 def _launch_cmux_matmul(lib, acc, buf, e_step, dims, l, b):
     bsz, k1, n, m, s_limbs = dims
     tables = _dense_dots_tables(k1, l, m, digit_limb_shifts(b), KERNEL_BLOCK)
+    args = dots.dots_args(tables, bsz, acc.device)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
-    err = lib.tfhe_cmux_matmul(
-        acc.data_ptr(), buf.data_ptr(), e_step.data_ptr(),
-        *dots.dots_args(tables, bsz, acc.device), bsz, k1, n, l, m, s_limbs,
-        ctypes.c_void_p(stream))
+    with span("tfhe.enqueue"):
+        err = lib.tfhe_cmux_matmul(
+            acc.data_ptr(), buf.data_ptr(), e_step.data_ptr(), *args, bsz,
+            k1, n, l, m, s_limbs, ctypes.c_void_p(stream))
     raise_on_error("cmux_matmul_kernel", lib, err)
-    cmux_matmul_kernel.launches += 1
+    count("cmux_matmul")
 
 
 def rotate_decompose_kernel(bara: torch.Tensor, acc: torch.Tensor, *, l: int,
@@ -216,9 +218,6 @@ def rotate_decompose_kernel(bara: torch.Tensor, acc: torch.Tensor, *, l: int,
     return buf.permute(1, 0, 2)
 
 
-rotate_decompose_kernel.launches = 0
-
-
 def cmux_matmul_kernel(digits: torch.Tensor, acc: torch.Tensor,
                        e_step: torch.Tensor, *, l: int, b: int,
                        t: int) -> torch.Tensor:
@@ -239,9 +238,6 @@ def cmux_matmul_kernel(digits: torch.Tensor, acc: torch.Tensor,
     if bsz:
         _launch_cmux_matmul(_build.load(), out, buf, e_step, dims, l, b)
     return out
-
-
-cmux_matmul_kernel.launches = 0
 
 
 def cmux_step_kernel(acc: torch.Tensor, e_step: torch.Tensor,

@@ -20,23 +20,23 @@ runs as in `ops/blind_rotate.py`.
 * `expand_step`, `blind_rotate_compact`: CPU tensors take the plain
   version; CUDA tensors launch the kernel or raise.
 
-Each wrapper counts the C calls that launched its kernel in `.launches`;
-the compact rotation launches the expansion kernel too, and counts it.
+Each wrapper counts the C calls that launched its kernel (`instrument`
+counters named as in `ops.kernel_wrappers()`); the compact rotation
+launches the expansion kernel too, and counts it.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
+from ..instrument import cached_build, count, span
 from ..tgsw import decomp_offset
 from . import dots
 from .blind_rotate import (
     check_rotation_args,
     combo_table,
-    digit_rows_kernel,
     dots_tables,
     mux_rotate_karatsuba,
     raise_on_error,
@@ -51,7 +51,7 @@ def entry_masks(plan: KaratsubaPlan) -> list:
     return [sum(1 << d for d in entry) for entry in entry_rows(plan)]
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build("device_entry_masks")
 def _device_entry_masks(plan: KaratsubaPlan, device: str) -> torch.Tensor:
     return dots.int_table([entry_masks(plan)], device)
 
@@ -122,15 +122,14 @@ def expand_step_kernel(limbs_step: torch.Tensor, *, t: int,
     shape = (k1, 4, t, rows) if kmajor else (rows, k1 * 4 * t)
     out = torch.empty(shape, dtype=torch.int8, device=limbs_step.device)
     stream = torch.cuda.current_stream(limbs_step.device).cuda_stream
-    err = lib.tfhe_expand_step(limbs_step.data_ptr(), masks.data_ptr(),
-                               out.data_ptr(), plan.total_rows, p, k1,
-                               n2 // 2, int(kmajor), ctypes.c_void_p(stream))
+    with span("tfhe.enqueue"):
+        err = lib.tfhe_expand_step(limbs_step.data_ptr(), masks.data_ptr(),
+                                   out.data_ptr(), plan.total_rows, p, k1,
+                                   n2 // 2, int(kmajor),
+                                   ctypes.c_void_p(stream))
     raise_on_error(who, lib, err)
-    expand_step_kernel.launches += 1
+    count("expand_karatsuba_step")
     return out
-
-
-expand_step_kernel.launches = 0
 
 
 def expand_step_probe(limbs_step: torch.Tensor, *, t: int,
@@ -203,21 +202,20 @@ def blind_rotate_compact_kernel(acc: torch.Tensor, limbs: torch.Tensor,
                           device=acc.device)  # K-major
     if n_steps and bsz:
         stream = torch.cuda.current_stream(acc.device).cuda_stream
-        err = lib.tfhe_blind_rotate_compact(
-            out.data_ptr(), limbs.data_ptr(), bara_t.data_ptr(),
-            lhs.data_ptr(), scratch.data_ptr(), masks.data_ptr(),
-            combos.data_ptr(), n_combos,
-            *dots.dots_args(dots_tables(plan, k1, l, t), bsz, acc.device),
-            bsz, k1, n, l, b, m, n_steps, lhs_rows, plan.total_rows,
-            decomp_offset(l, b, balanced), ctypes.c_void_p(stream))
+        tables = dots.dots_args(dots_tables(plan, k1, l, t), bsz, acc.device)
+        offset = decomp_offset(l, b, balanced)
+        with span("tfhe.enqueue"):
+            err = lib.tfhe_blind_rotate_compact(
+                out.data_ptr(), limbs.data_ptr(), bara_t.data_ptr(),
+                lhs.data_ptr(), scratch.data_ptr(), masks.data_ptr(),
+                combos.data_ptr(), n_combos, *tables, bsz, k1, n, l, b, m,
+                n_steps, lhs_rows, plan.total_rows, offset,
+                ctypes.c_void_p(stream))
         raise_on_error(who, lib, err)
-        blind_rotate_compact_kernel.launches += 1
-        expand_step_kernel.launches += 1
-        digit_rows_kernel.launches += n_steps
+        count("blind_rotate_compact")
+        count("expand_karatsuba_step")
+        count("rotate_decompose_rows", n_steps)
     return out
-
-
-blind_rotate_compact_kernel.launches = 0
 
 
 def blind_rotate_compact(acc: torch.Tensor, limbs: torch.Tensor,

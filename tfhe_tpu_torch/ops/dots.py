@@ -35,6 +35,8 @@ import math
 
 import torch
 
+from ..instrument import cached_build
+
 CHUNK = 128  # contraction bytes per ring slot (one 128-byte swizzle row)
 ROW_TILE = 64  # batch rows per block: the wgmma M
 COL_TILE = 32  # coefficients per column tile, per limb (wgmma N = 128)
@@ -226,13 +228,13 @@ def int_table(rows, device) -> torch.Tensor:
     return torch.tensor(flat, dtype=torch.int32, device=device)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build("device_rows")
 def _device_rows(tables: DotsTables, device: str):
     return int_table(tables.products, device), \
         int_table(tables.targets, device)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build("device_items")
 def _device_items(tables: DotsTables, tiles: int, target_blocks: int,
                   device: str):
     items = work_items(tables, tiles, target_blocks)

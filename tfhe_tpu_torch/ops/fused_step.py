@@ -14,7 +14,8 @@ in the reference.
 * `cmux_step_karatsuba_kernel`: the CUDA wrapper (`csrc/fused_step.cu`),
   the step K-major int8[K, 4, T, R*P*T] (`key[s]` of a baked key on the
   card, `dots.to_kmajor` of a reference step); it raises on the reference
-  layout and never converts. It counts its launches in `.launches`.
+  layout and never converts. It counts its launches (`instrument` counter
+  "cmux_step_karatsuba").
 * `cmux_step_karatsuba`: CPU tensors take the plain version; CUDA tensors
   launch the kernel or raise.
 
@@ -29,10 +30,10 @@ test emulates it).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
+from ..instrument import cached_build, count, span
 from ..tgsw import decomp_offset
 from . import dots
 from .blind_rotate import (
@@ -100,7 +101,7 @@ def stage_rows(k1: int, n: int, m: int) -> int:
     return max(1, min(GROUP_ROWS, room // (k1 * n * 4)))
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build("device_tables")
 def _device_tables(plan: KaratsubaPlan, k1: int, l: int, t: int,
                    device: str):
     _, _, tables, items = fused_tables(plan, k1, l, t)
@@ -153,9 +154,10 @@ def cmux_step_karatsuba_kernel(acc: torch.Tensor, e_step: torch.Tensor,
     if bsz:
         lib, args, _scratch = _launch_args(acc, e_step, bara, out, l, b, t,
                                            plan, balanced)
-        err = lib.tfhe_cmux_step_karatsuba(*args)
+        with span("tfhe.enqueue"):
+            err = lib.tfhe_cmux_step_karatsuba(*args)
         raise_on_error(who, lib, err)
-        cmux_step_karatsuba_kernel.launches += 1
+        count("cmux_step_karatsuba")
     return out
 
 
@@ -202,9 +204,6 @@ def cmux_step_karatsuba_probe(acc: torch.Tensor, e_step: torch.Tensor,
         args[-1])
     raise_on_error("cmux_step_karatsuba_probe", lib, err)
     return resident.value
-
-
-cmux_step_karatsuba_kernel.launches = 0
 
 
 def cmux_step_karatsuba(acc: torch.Tensor, e_step: torch.Tensor,

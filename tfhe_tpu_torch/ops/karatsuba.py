@@ -13,10 +13,10 @@ split into one int8 limb, or two (shifts 0 and 7) when they may leave
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 
+from ..instrument import cached_build
 from .conv import i8_matmul, split_torus_limbs
 
 
@@ -64,7 +64,7 @@ def _digit_limb_shifts(bound: int) -> tuple:
     return (0, 7)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build("karatsuba_plan")
 def karatsuba_plan(m: int, depth: int, log2_base: int) -> KaratsubaPlan:
     """Static recursion metadata for a depth-`depth` split of length-m block
     sequences; depth 0 is the dense linear convolution as one leaf."""

@@ -24,7 +24,8 @@ accumulator column k.
   for the kernels.
 * `cmux_step_sparse_kernel`, `mk_blind_rotate_chunk_kernel`,
   `mk_blind_rotate_compact_kernel`: the CUDA wrappers (`csrc/mk_cmux.cu`);
-  each counts the C calls that launched its kernels in `.launches`. The
+  each counts the C calls that launched its kernels (`instrument` counters
+  named as in `ops.kernel_wrappers()`). The
   step and chunk wrappers take the operand K-major (`dots.to_kmajor`'s
   layout, as `expand_sparse` writes it on the card) and raise on the
   reference layout.
@@ -39,17 +40,16 @@ accumulator column k.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
+from ..instrument import cached_build, count, span
 from ..polynomial import mul_by_monomial
 from ..tgsw import decomp_offset, decompose
 from . import dots
 from .blind_rotate import (
     check_rotation_args,
     combo_table,
-    digit_rows_kernel,
     kernel_plan,
     raise_on_error,
     require,
@@ -183,7 +183,7 @@ def mk_product_tables(plan: KaratsubaPlan, l: int, k1: int, t: int,
     return tuple(products)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_build("mk_dots_tables")
 def _mk_dots_tables(plan: KaratsubaPlan, l: int, k1: int, t: int,
                     nz) -> dots.DotsTables:
     return dots.encode_multi_key(mk_product_tables(plan, l, k1, t, nz), k1,
@@ -288,18 +288,16 @@ def cmux_step_sparse_kernel(acc: torch.Tensor, e_step: torch.Tensor,
         who, acc, e_step[None], bara[None], l, b, t, plan, nz, balanced)
     dots.require_kmajor(who, e_step, (), 1, t, e_step_rows(plan, l, t, nz))
     if sz["bsz"]:
-        err = lib.tfhe_mk_cmux_step(
-            out.data_ptr(), e_step.data_ptr(), bara.data_ptr(),
-            lhs.data_ptr(), *tables, sz["bsz"], sz["k1"], sz["n"], l, b,
-            sz["m"], sz["lhs_rows"], plan.total_rows, sz["nzn"],
-            sz["offset"], stream)
+        with span("tfhe.enqueue"):
+            err = lib.tfhe_mk_cmux_step(
+                out.data_ptr(), e_step.data_ptr(), bara.data_ptr(),
+                lhs.data_ptr(), *tables, sz["bsz"], sz["k1"], sz["n"], l, b,
+                sz["m"], sz["lhs_rows"], plan.total_rows, sz["nzn"],
+                sz["offset"], stream)
         raise_on_error(who, lib, err)
-        cmux_step_sparse_kernel.launches += 1
-        digit_rows_kernel.launches += 1
+        count("cmux_step_sparse")
+        count("rotate_decompose_rows")
     return out
-
-
-cmux_step_sparse_kernel.launches = 0
 
 
 def mk_blind_rotate_chunk_kernel(acc: torch.Tensor, e_chunk: torch.Tensor,
@@ -317,18 +315,16 @@ def mk_blind_rotate_chunk_kernel(acc: torch.Tensor, e_chunk: torch.Tensor,
     dots.require_kmajor(who, e_chunk, (n_steps,), 1, t,
                         e_step_rows(plan, l, t, nz))
     if n_steps and sz["bsz"]:
-        err = lib.tfhe_mk_blind_rotate_chunk(
-            out.data_ptr(), e_chunk.data_ptr(), bara_t.data_ptr(),
-            lhs.data_ptr(), *tables, sz["bsz"], sz["k1"], sz["n"], l, b,
-            sz["m"], n_steps, sz["lhs_rows"], plan.total_rows, sz["nzn"],
-            sz["offset"], stream)
+        with span("tfhe.enqueue"):
+            err = lib.tfhe_mk_blind_rotate_chunk(
+                out.data_ptr(), e_chunk.data_ptr(), bara_t.data_ptr(),
+                lhs.data_ptr(), *tables, sz["bsz"], sz["k1"], sz["n"], l, b,
+                sz["m"], n_steps, sz["lhs_rows"], plan.total_rows,
+                sz["nzn"], sz["offset"], stream)
         raise_on_error(who, lib, err)
-        mk_blind_rotate_chunk_kernel.launches += 1
-        digit_rows_kernel.launches += n_steps
+        count("mk_blind_rotate_chunk")
+        count("rotate_decompose_rows", n_steps)
     return out
-
-
-mk_blind_rotate_chunk_kernel.launches = 0
 
 
 def mk_blind_rotate_compact_kernel(acc: torch.Tensor, limbs: torch.Tensor,
@@ -349,19 +345,18 @@ def mk_blind_rotate_compact_kernel(acc: torch.Tensor, limbs: torch.Tensor,
     scratch = torch.empty((4, t, e_step_rows(plan, l, t, nz)),
                           dtype=torch.int8, device=acc.device)  # K-major
     if n_steps and sz["bsz"]:
-        err = lib.tfhe_mk_blind_rotate_compact(
-            out.data_ptr(), limbs.data_ptr(), bara_t.data_ptr(),
-            lhs.data_ptr(), scratch.data_ptr(), masks.data_ptr(), *tables,
-            sz["bsz"], sz["k1"], sz["n"], l, b, sz["m"], n_steps,
-            sz["lhs_rows"], plan.total_rows, sz["nzn"], sz["offset"], stream)
+        with span("tfhe.enqueue"):
+            err = lib.tfhe_mk_blind_rotate_compact(
+                out.data_ptr(), limbs.data_ptr(), bara_t.data_ptr(),
+                lhs.data_ptr(), scratch.data_ptr(), masks.data_ptr(),
+                *tables, sz["bsz"], sz["k1"], sz["n"], l, b, sz["m"],
+                n_steps, sz["lhs_rows"], plan.total_rows, sz["nzn"],
+                sz["offset"], stream)
         raise_on_error(who, lib, err)
-        mk_blind_rotate_compact_kernel.launches += 1
-        expand_step_kernel.launches += 1  # the loop runs that kernel too
-        digit_rows_kernel.launches += n_steps
+        count("mk_blind_rotate_compact")
+        count("expand_karatsuba_step")  # the loop runs that kernel too
+        count("rotate_decompose_rows", n_steps)
     return out
-
-
-mk_blind_rotate_compact_kernel.launches = 0
 
 
 # --- dispatchers ---

@@ -57,6 +57,9 @@ import time
 
 import torch
 
+from .. import instrument
+from ..ops import kernel_wrappers, reset_launches
+
 SEED = 123
 TIMEOUT_S = 600  # the command line's limit on its ranks
 
@@ -140,25 +143,6 @@ def default_plan(tmp: str, device: str, data: int, model: int,
 # --- one rank ---
 
 
-def _wrappers() -> dict:
-    """The kernel wrappers of the port, by name, with their launch
-    counters (the names chip_smoke.py prints)."""
-    from ..ops import blind_rotate, cmux_step, compact, fused_step, mk_cmux
-
-    return {
-        "cmux_step_karatsuba": fused_step.cmux_step_karatsuba_kernel,
-        "blind_rotate": blind_rotate.blind_rotate_kernel,
-        "blind_rotate_compact": compact.blind_rotate_compact_kernel,
-        "expand_karatsuba_step": compact.expand_step_kernel,
-        "rotate_decompose": cmux_step.rotate_decompose_kernel,
-        "rotate_decompose_rows": blind_rotate.digit_rows_kernel,
-        "cmux_matmul": cmux_step.cmux_matmul_kernel,
-        "cmux_step_sparse": mk_cmux.cmux_step_sparse_kernel,
-        "mk_blind_rotate_chunk": mk_cmux.mk_blind_rotate_chunk_kernel,
-        "mk_blind_rotate_compact": mk_cmux.mk_blind_rotate_compact_kernel,
-    }
-
-
 class Rank:
     """This process's place in the world and what a case measures."""
 
@@ -166,7 +150,7 @@ class Rank:
         self.rank = rank
         self.device = torch.device(device, torch.cuda.current_device()) \
             if device == "cuda" else torch.device("cpu")
-        self.wrappers = _wrappers()
+        self.wrappers = kernel_wrappers()
 
     def sync(self):
         if self.device.type == "cuda":
@@ -177,8 +161,7 @@ class Rank:
         memory; returns the clock."""
         from .mesh import traffic
 
-        for fn in self.wrappers.values():
-            fn.launches = 0
+        reset_launches()
         traffic.reset()
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
@@ -193,8 +176,7 @@ class Rank:
         seconds = time.perf_counter() - t0
         return {
             "seconds": seconds,
-            "launches": {k: fn.launches for k, fn in self.wrappers.items()
-                         if fn.launches},
+            "launches": instrument.counts(self.wrappers),
             "collectives": traffic.calls,
             "staged_bytes": traffic.staged_bytes,
             "peak_bytes": (torch.cuda.max_memory_allocated(self.device)

@@ -12,8 +12,9 @@ synchronize) and prints one JSON line per batch: `preset`, `form`,
 `ms_per_layer`, `gates_per_sec`, and `correct` of `of`, the decrypt-level
 check of the timed chain's outputs (a wrong gate is not a faster gate).
 128fast8 runs compact only: its M=1 baked form is a ~13 GB copy of the
-key. The log on stderr gives each form's kernel launches (the wrappers'
-counters). TFHE_TPU_SERVE_SMALL=1 runs toy parameters at batches 1 and 2 with a
+key. The log on stderr gives each form's counters (kernel launches,
+rotation paths, table builds) and the host seconds of its table builds.
+TFHE_TPU_SERVE_SMALL=1 runs toy parameters at batches 1 and 2 with a
 chain of 2, and marks each line "small_toy_params": true; nothing shrinks
 unless asked.
 """
@@ -31,7 +32,7 @@ import torch
 from .. import api, gates, tuning
 from .. import params as presets
 from ..bench import nand_chain, plain_nand
-from ..ops import launches, reset_launches
+from ..ops import build_seconds, launches, reset_launches
 from ..utils.entry import (
     add_device_argument,
     barrier,
@@ -108,6 +109,7 @@ def main(argv=None) -> int:
                     "of": b_sz, **extra,
                 }), flush=True)
             log(f"{name}/{form} kernel launches: {launches(wrappers)}")
+            log(f"{name}/{form} builds, host s: {build_seconds()}")
             del sk, ck, nand
     return 0
 
