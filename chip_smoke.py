@@ -18,14 +18,16 @@ back):
    8 parties with K = 9; B = 70 unless named), then its time at the
    presets' shapes (B = 4096, 256 for 8 parties) beside its byte bound;
    the baked Karatsuba rotation (128_fast with B = 256 and 300, toy,
-   N = 1024 at depth 2, the plans of 128_pbs (K = 3, N = 512) and
+   N = 1024 at depth 2 (`tfhe_parameters_128`'s plan) with B = 64 and 70,
+   the plans of 128_pbs (K = 3, N = 512) and
    128_radix_reliable (l = 4, b = 6) with B = 70, and the 80-bit shape with
    b = 10); the expansion
    kernel in both layouts against `expand_karatsuba_step` and against that
    step of `bake_karatsuba` (128_fast, 128_fast8, N = 1024 l = 4 b = 6
    depth 2);
    the compact rotation (128_fast8 with B = 256 and 300, 128_fast at depth
-   1, N = 1024 at depth 2, the plan of 128_radix_reliable with B = 70); the
+   1, N = 1024 at depth 2 with B = 64 and 70, the plan of
+   128_radix_reliable with B = 70); the
    dense step's two kernels and its rotation
    (128_fast at depth 0 with B = 256 and 300, 128_fast8's M = 1, the
    80-bit shape with two digit limbs); the three multi-key kernels (one
@@ -41,7 +43,12 @@ back):
    whole-rotation and dense kernels read their key K-major
    (`ops/dots.py:to_kmajor`), the plain versions the reference layout of the
    same bytes; the multi-key operands are K-major on the card, relaid with
-   `from_kmajor` for the plain versions. Then each kernel timed at B = 4096
+   `from_kmajor` for the plain versions. Each line of a case that runs the
+   dots kernels names `c`, the blocks of their clusters, as the call's
+   `dots.clustered` count shows it (one a C entry call whose launches run
+   in clusters), and checks that count against `ops/dots.py:cluster_size`:
+   2 where the batch's 64-row tiles pair up (B = 70, 256, 4096), else 1, a
+   plain launch (B = 64, 300). Then each kernel timed at B = 4096
    over 8 steps beside its plain version, with its bound from the shapes;
    for the dots kernels also
    the int8 operations executed (from the product tables they read) and
@@ -313,10 +320,23 @@ class Kernels:
               f"{name} kernel != plain at {what} (max |diff| {err})")
         print(f"[3 kernel=plain] {name} {what}: equal", flush=True)
 
+    def compare_dots(self, name, what, batch, kernel_fn, want, calls=1):
+        """compare() for a kernel whose `calls` C entry calls run the dots:
+        the `dots.clustered` count that kernel_fn() adds must be the
+        cluster rule's at this batch, and the line names the `c` it shows."""
+        got, seen = clustered_calls(kernel_fn)
+        rule = cluster_of(batch)
+        check(seen == calls * int(rule > 1),
+              f"{name} at {what}: dots.clustered counted {seen} over "
+              f"{calls} calls, the rule at B={batch} says c={rule}")
+        self.compare(name, f"{what} c={2 if seen else 1}", got, want)
+
     def timed(self, name, what, kernel_fn, plain_fn, bound, card,
               dots=None):
         """dots: for a kernel that runs the int8 dots, (executed, useful
-        operations, the `torch._int_mm` yardstick's ms) of the timed call.
+        operations, the `torch._int_mm` yardstick's ms, the blocks of its
+        clusters) of the timed call; one more call of kernel_fn shows the
+        blocks by its `dots.clustered` count, which must agree.
         The operation counts come from the tables the kernel reads, not from
         the card, so they go on this line only; the yardstick is measured and
         also goes into the kernels record."""
@@ -326,10 +346,14 @@ class Kernels:
         ent["bound_ms"], ent["bound_by"] = bound
         extra = "no single library call"
         if dots is not None:
-            executed, useful, mm_ms = dots
+            executed, useful, mm_ms, cluster = dots
+            seen = 2 if clustered_calls(kernel_fn)[1] else 1
+            check(seen == cluster, f"{name} at {what}: dots.clustered shows "
+                  f"c={seen}, expected c={cluster}")
             sec = ent["ms"] / 1e3
             ent["int_mm_products_ms"] = mm_ms
-            extra = (f"{executed:.4g} int8 ops executed, {useful:.4g} useful, "
+            extra = (f"dots c={cluster}: "
+                     f"{executed:.4g} int8 ops executed, {useful:.4g} useful, "
                      f"counted from the tables (x{executed / useful:.3f}): "
                      f"{executed / sec / 1e12:.1f}"
                      f" TOP/s executed, {useful / sec / 1e12:.1f} useful | "
@@ -340,13 +364,15 @@ class Kernels:
               f"{ent['bound_by']} | {extra} | {card}", flush=True)
 
 
-def dots_ops(tables, batch: int, cols: int, useful: float, steps: int = 1):
-    """(executed, useful, int_mm ms) of `steps` dots launches at this batch:
-    every product of the kernel's table once over the `cols` key columns
-    it serves (all K*4*T of a single-key step, the 4*T of a multi-key
-    block), and the summed time of `torch._int_mm` over the same products:
-    one timed call per distinct [batch, depth] x [depth, cols] shape, times
-    its count."""
+def dots_ops(tables, batch: int, cols: int, useful: float, steps: int = 1,
+             cluster=None):
+    """(executed, useful, int_mm ms, c) of `steps` dots launches at this
+    batch: every product of the kernel's table once over the `cols` key
+    columns it serves (all K*4*T of a single-key step, the 4*T of a
+    multi-key block), the summed time of `torch._int_mm` over the same
+    products (one timed call per distinct [batch, depth] x [depth, cols]
+    shape, times its count), and the blocks of the launches' clusters
+    (`cluster`, else the dots launches' own rule at this batch)."""
     from collections import Counter
 
     from tfhe_tpu_torch.ops.dots import CHUNK
@@ -358,7 +384,26 @@ def dots_ops(tables, batch: int, cols: int, useful: float, steps: int = 1):
     for depth, count in depths.items():
         a, b = rand_i8(gen, (batch, depth)), rand_i8(gen, (depth, cols))
         mm_ms += count * cuda_ms(lambda: torch._int_mm(a, b), reps=10)
-    return steps * executed, steps * useful, steps * mm_ms
+    return (steps * executed, steps * useful, steps * mm_ms,
+            cluster or cluster_of(batch))
+
+
+def cluster_of(batch: int) -> int:
+    """The blocks of a dots launch's clusters at this batch (c = 1: a
+    plain launch)."""
+    from tfhe_tpu_torch.ops import dots
+
+    return dots.cluster_size(-(-batch // dots.ROW_TILE))
+
+
+def clustered_calls(fn):
+    """fn()'s result and the `dots.clustered` count it added: its C entry
+    calls whose dots launches ran in clusters."""
+    from tfhe_tpu_torch.instrument import counts
+
+    before = counts().get("dots.clustered", 0)
+    out = fn()
+    return out, counts().get("dots.clustered", 0) - before
 
 
 def phase3(gen, card) -> Kernels:
@@ -390,13 +435,15 @@ def phase3(gen, card) -> Kernels:
                         ("128_fast", 5, 256, 2, 8, 1, 8, 300),
                         ("toy", 2, 256, 3, 7, 1, 8, 64),
                         ("N1024_depth2", 2, 1024, 3, 7, 2, 4, 64),
+                        ("N1024_depth2", 2, 1024, 3, 7, 2, 4, 70),
                         ("128_pbs", 3, 512, 3, 7, 2, 4, 70),
                         ("128_radix_reliable", 2, 1024, 4, 6, 2, 4, 70),
                         ("80bit_b10", 2, 1024, 2, 10, 2, 4, 64)]:
         acc, key, bara_t, kw = random_case(gen, *dims)
-        ks.compare("blind_rotate", f"{name} {shape(*dims)}",
-                   blind_rotate_kernel(acc, to_kmajor(key), bara_t, **kw),
-                   blind_rotate_plain(acc, key, bara_t, **kw))
+        key_km = to_kmajor(key)
+        ks.compare_dots("blind_rotate", f"{name} {shape(*dims)}", dims[-1],
+                        lambda: blind_rotate_kernel(acc, key_km, bara_t, **kw),
+                        blind_rotate_plain(acc, key, bara_t, **kw))
 
     # the expansion kernel (row 6), in both layouts, against the plain
     # version and the bake
@@ -419,11 +466,13 @@ def phase3(gen, card) -> Kernels:
                         ("128_fast8", 9, 128, 2, 8, 0, 6, 300),
                         ("128_fast", 5, 256, 2, 8, 1, 6, 300),
                         ("N1024_depth2", 2, 1024, 3, 7, 2, 4, 64),
+                        ("N1024_depth2", 2, 1024, 3, 7, 2, 4, 70),
                         ("128_radix_reliable", 2, 1024, 4, 6, 2, 4, 70)]:
         acc, limbs, bara_t, kw = random_case(gen, *dims, form="compact")
-        ks.compare(
-            "blind_rotate_compact", f"{name} {shape(*dims)}",
-            compact.blind_rotate_compact_kernel(acc, limbs, bara_t, **kw),
+        ks.compare_dots(
+            "blind_rotate_compact", f"{name} {shape(*dims)}", dims[-1],
+            lambda: compact.blind_rotate_compact_kernel(acc, limbs, bara_t,
+                                                        **kw),
             compact.blind_rotate_compact_plain(acc, limbs, bara_t, **kw))
 
     # the dense step's two kernels and its rotation (rows 4 and 5)
@@ -438,13 +487,16 @@ def phase3(gen, card) -> Kernels:
                    cmux_step.rotate_decompose_plain(bara_t[1], acc, **kw))
         mm = dict(l=kw["l"], b=kw["b"], t=T)
         key_km = to_kmajor(key)
-        ks.compare("cmux_matmul", what,
-                   cmux_step.cmux_matmul_kernel(digits, acc, key_km[1], **mm),
-                   cmux_step.cmux_matmul_plain(digits, acc, key[1], **mm))
-        ks.compare(
-            "cmux_matmul", what + " (whole rotation)",
-            cmux_step.blind_rotate_dense_kernel(acc, key_km, bara_t, **kw),
-            cmux_step.blind_rotate_dense_plain(acc, key, bara_t, **kw))
+        ks.compare_dots(
+            "cmux_matmul", what, dims[-1],
+            lambda: cmux_step.cmux_matmul_kernel(digits, acc, key_km[1], **mm),
+            cmux_step.cmux_matmul_plain(digits, acc, key[1], **mm))
+        ks.compare_dots(
+            "cmux_matmul", what + " (whole rotation)", dims[-1],
+            lambda: cmux_step.blind_rotate_dense_kernel(acc, key_km, bara_t,
+                                                        **kw),
+            cmux_step.blind_rotate_dense_plain(acc, key, bara_t, **kw),
+            calls=dims[-2])
 
     # timings at B = 4096 over TIMED_STEPS steps, with the bound of the work
     steps = TIMED_STEPS
@@ -731,7 +783,7 @@ def phase3_fused(ks, gen, card):
              lambda: chain(cmux_step_karatsuba_plain, acc, key, bara_t, kw),
              bound_ms(io, dots, PEAK_INT8_OPS_PER_S), card,
              dots_ops(dots_tables(kw["plan"], 5, 2, T), BATCH, cols,
-                      dots / steps, steps))
+                      dots / steps, steps, cluster=1))
 
 
 # The fused step's plans (name, K, N, l, b, depth): 128_fast, 128_radix,
@@ -817,21 +869,21 @@ def phase3_mk(ks, gen, card):
                                   st.contiguous().reshape(
                                       4, len(nz) * l, 1, st.shape[-1]),
                                   t=t, plan=plan)), e_ref)
-        ks.compare("cmux_step_sparse", what,
-                   mk_cmux.cmux_step_sparse_kernel(acc, e_chunk[1], bara_t[1],
-                                                   **kw),
-                   mk_cmux.cmux_step_sparse_plain(acc, e_ref[1], bara_t[1],
-                                                  **kw))
-        ks.compare("mk_blind_rotate_chunk", what,
-                   mk_cmux.mk_blind_rotate_chunk_kernel(acc, e_chunk, bara_t,
-                                                        **kw),
-                   mk_cmux.mk_blind_rotate_chunk_plain(acc, e_ref, bara_t,
-                                                       **kw))
-        ks.compare("mk_blind_rotate_compact", what,
-                   mk_cmux.mk_blind_rotate_compact_kernel(acc, limbs, bara_t,
-                                                          **kw),
-                   mk_cmux.mk_blind_rotate_compact_plain(acc, limbs, bara_t,
-                                                         **kw))
+        ks.compare_dots(
+            "cmux_step_sparse", what, batch,
+            lambda: mk_cmux.cmux_step_sparse_kernel(acc, e_chunk[1],
+                                                    bara_t[1], **kw),
+            mk_cmux.cmux_step_sparse_plain(acc, e_ref[1], bara_t[1], **kw))
+        ks.compare_dots(
+            "mk_blind_rotate_chunk", what, batch,
+            lambda: mk_cmux.mk_blind_rotate_chunk_kernel(acc, e_chunk, bara_t,
+                                                         **kw),
+            mk_cmux.mk_blind_rotate_chunk_plain(acc, e_ref, bara_t, **kw))
+        ks.compare_dots(
+            "mk_blind_rotate_compact", what, batch,
+            lambda: mk_cmux.mk_blind_rotate_compact_kernel(acc, limbs, bara_t,
+                                                           **kw),
+            mk_cmux.mk_blind_rotate_compact_plain(acc, limbs, bara_t, **kw))
         del e_chunk, e_ref
 
     # timings: party 1's plan of 2-party lownoise (K = 3, NZ = 7), B = 4096

@@ -13,7 +13,10 @@
 * The K-major key layout (`ops/dots.py`): the relayout and its inverse, and
   an emulation of the dots kernel's tile addressing (TMA box, 128-byte
   swizzle, wgmma descriptor) that reads back the reference byte.
-* On a CUDA card only: the kernel itself against the plain version.
+* The dots launches' cluster size (`ops/dots.py:cluster_size`) and the
+  `dots.clustered` counter.
+* On a CUDA card only: the kernel itself against the plain version
+  (tests/test_torch_dots_cluster.py: the clustered launches).
 """
 
 import collections
@@ -27,7 +30,7 @@ import torch
 from tfhe_tpu import bootstrap as j_bs
 from tfhe_tpu import tlwe as j_tlwe
 from tfhe_tpu_torch import bootstrap as p_bs
-from tfhe_tpu_torch import interop
+from tfhe_tpu_torch import instrument, interop
 from tfhe_tpu_torch.ops import dots
 from tfhe_tpu_torch.ops.blind_rotate import (
     blind_rotate_kernel,
@@ -256,6 +259,25 @@ def test_work_items_fill_the_card_and_cut_only_where_short():
         assert 3 <= stages <= 6
         assert dots.smem_bytes(m, stages) <= 227 * 1024
     assert dots.smem_bytes(2, dots.ring_stages(2)) + 1024 <= 114 * 1024
+
+
+@pytest.mark.parametrize("tiles,cluster", [(1, 1), (2, 2), (3, 1),
+                                           (64, 2)])
+def test_cluster_pairs_batch_tiles_and_counts_clustered(tiles, cluster,
+                                                       monkeypatch):
+    """The dots launches' cluster size follows the batch tiles alone,
+    divides them, reaches the C entry as the last dots argument, and a
+    clustered call counts once in `dots.clustered`."""
+    assert dots.cluster_size(tiles) == cluster and tiles % cluster == 0
+    monkeypatch.setattr(dots, "_sm_count", lambda device: 132)
+    tables = dots_tables(karatsuba_plan(2, 1, 8), 5, 2, 128)  # 128_fast
+    instrument.reset()
+    for _ in range(3):
+        args = dots.dots_args(tables, tiles * dots.ROW_TILE - 5, "cpu")
+        assert args[-1] == cluster
+    assert instrument.counts().get("dots.clustered", 0) == \
+        (3 if cluster > 1 else 0)
+    instrument.reset()
 
 
 def test_kernel_refuses_cpu_tensors():

@@ -74,9 +74,9 @@ int tfhe_blind_rotate(int32_t* acc, const int8_t* key, const int32_t* bara_t,
                       int8_t* lhs, const int32_t* combos, int n_combos,
                       const int32_t* products, const int32_t* targets,
                       const int32_t* items, int n_items, int stages,
-                      int batch, int k1, int n, int l, int b, int m,
-                      int n_steps, int lhs_rows, int total_rows, int offset,
-                      void* stream) {
+                      int cluster, int batch, int k1, int n, int l, int b,
+                      int m, int n_steps, int lhs_rows, int total_rows,
+                      int offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p;
   cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
@@ -84,8 +84,8 @@ int tfhe_blind_rotate(int32_t* acc, const int8_t* key, const int32_t* bara_t,
   if (err != cudaSuccess) return (int)err;
   DotsLaunch dots;
   err = make_dots(dots, lhs, p.lhs_stride, key, total_rows * p.pt, k1,
-                  n_steps, products, targets, items, n_items, stages, batch,
-                  k1, n, m, 0, 0);
+                  n_steps, products, targets, items, n_items, stages,
+                  cluster, batch, k1, n, m, 0, 0);
   if (err != cudaSuccess) return (int)err;
   err = allow_dots_smem(dots);
   if (err != cudaSuccess) return (int)err;

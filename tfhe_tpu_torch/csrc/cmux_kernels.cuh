@@ -292,9 +292,10 @@ rotate_decompose_kernel(const int32_t* __restrict__ acc,
 }
 
 // The dots launch of a step (dots_sm90.cuh): one block per (work item,
-// batch tile of kDotRows rows). The two kernels share one body and differ
-// in where the key's poly coordinate comes from: a single-key step's key
-// holds every output poly k, a multi-key step's operand one (K = 1).
+// batch tile of kDotRows rows), in clusters of d.cluster blocks along the
+// batch tile. The two kernels share one body and differ in where the key's
+// poly coordinate comes from: a single-key step's key holds every output
+// poly k, a multi-key step's operand one (K = 1).
 __global__ void __launch_bounds__(kDotThreads, 2)
 leaf_dots_kernel(const __grid_constant__ CUtensorMap a_map,
                  const __grid_constant__ CUtensorMap b_map,
@@ -328,16 +329,27 @@ inline cudaError_t allow_dots_smem(const DotsLaunch& d) {
                               (int)d.smem);
 }
 
+// The grid in clusters of (1, d.cluster, 1) blocks; at d.cluster = 1 the
+// launch carries no attribute, a plain launch.
 inline cudaError_t launch_dots(int32_t* acc, DotsLaunch& d, int step,
                                bool multi_key, cudaStream_t st) {
   d.p.step = step;
-  const dim3 grid(d.n_items, d.tiles);
-  if (multi_key)
-    mk_unit_dots_kernel<<<grid, kDotThreads, d.smem, st>>>(
-        d.a_map, d.b_map, acc, d.products, d.targets, d.items, d.p);
-  else
-    leaf_dots_kernel<<<grid, kDotThreads, d.smem, st>>>(
-        d.a_map, d.b_map, acc, d.products, d.targets, d.items, d.p);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = d.cluster;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(d.n_items, d.tiles);
+  cfg.blockDim = dim3(kDotThreads, 1, 1);
+  cfg.dynamicSmemBytes = d.smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = d.cluster > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, multi_key ? mk_unit_dots_kernel : leaf_dots_kernel, d.a_map,
+      d.b_map, acc, d.products, d.targets, d.items, d.p);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

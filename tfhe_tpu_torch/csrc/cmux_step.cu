@@ -113,13 +113,15 @@ int tfhe_rotate_decompose(const int32_t* acc, const int32_t* bara_step,
 // e_step int8[K, 4, T, 2M*P*T] (K-major), the dense product table.
 int tfhe_cmux_matmul(int32_t* acc, const int8_t* digits, const int8_t* e_step,
                      const int32_t* products, const int32_t* targets,
-                     const int32_t* items, int n_items, int stages, int batch,
-                     int k1, int n, int l, int m, int s_limbs, void* stream) {
+                     const int32_t* items, int n_items, int stages,
+                     int cluster, int batch, int k1, int n, int l, int m,
+                     int s_limbs, void* stream) {
   const int pt = k1 * l * kT;
   DotsLaunch dots;
   cudaError_t err = make_dots(dots, digits, s_limbs * m * pt, e_step,
                               2 * m * pt, k1, 1, products, targets, items,
-                              n_items, stages, batch, k1, n, m, 0, 0);
+                              n_items, stages, cluster, batch, k1, n, m, 0,
+                              0);
   if (err != cudaSuccess) return (int)err;
   err = allow_dots_smem(dots);
   if (err != cudaSuccess) return (int)err;

@@ -80,10 +80,10 @@ int tfhe_blind_rotate_compact(int32_t* acc, const int8_t* limbs,
                               const int32_t* combos, int n_combos,
                               const int32_t* products,
                               const int32_t* targets, const int32_t* items,
-                              int n_items, int stages, int batch, int k1,
-                              int n, int l, int b, int m, int n_steps,
-                              int lhs_rows, int total_rows, int offset,
-                              void* stream) {
+                              int n_items, int stages, int cluster,
+                              int batch, int k1, int n, int l, int b, int m,
+                              int n_steps, int lhs_rows, int total_rows,
+                              int offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p;
   cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
@@ -91,8 +91,8 @@ int tfhe_blind_rotate_compact(int32_t* acc, const int8_t* limbs,
   if (err != cudaSuccess) return (int)err;
   DotsLaunch dots;
   err = make_dots(dots, lhs, p.lhs_stride, scratch, total_rows * p.pt, k1, 1,
-                  products, targets, items, n_items, stages, batch, k1, n, m,
-                  0, 0);
+                  products, targets, items, n_items, stages, cluster, batch,
+                  k1, n, m, 0, 0);
   if (err != cudaSuccess) return (int)err;
   err = allow_dots_smem(dots);
   if (err != cudaSuccess) return (int)err;

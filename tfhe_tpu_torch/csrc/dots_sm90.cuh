@@ -53,9 +53,25 @@
 // written. The key tile arrives K-major, as wgmma reads 8-bit operands: no
 // transpose on the card.
 //
-// What bounds it: int8 tensor-core work at the large batches (every
-// product once: executed = useful operations), and the L2 feed of 24 KB per
-// 1 M multiply-adds at one 64 x 128 tile per block. See PERF.md.
+// Clusters. Where a launch's batch tiles pair up it runs as thread-block
+// clusters of C = 2 blocks along the batch tile (ops/dots.py:cluster_size;
+// C = 1 is a plain launch, cmux_kernels.cuh:launch_dots). The two blocks of
+// a cluster share blockIdx.x, so they run one work item and read the same
+// key tiles in the same order, and they are scheduled at once on one GPC.
+// The body does not know of the cluster: each block loads its whole slots.
+//
+// What bounds it (an H100 80GB HBM3 at 700 W, the two batch-4096 shapes of
+// the benchmark; PERF.md): every product is computed once (executed =
+// useful operations). In plain launches the executed work ran at 33-36% of
+// the int8 peak, one block an SM at M = 8, with L2 feeding 24 KB per 1 M
+// multiply-adds: 7.9 TB/s. Clusters of 2 run it at 37-38%, 1.05-1.12x
+// faster, and the feed rises to 8.6 TB/s: the gain is the pairing of the
+// blocks, for a cause not measured (two blocks on one item at once, or L2
+// locality). With no key feed at all (a timing-only variant) the work ran
+// at 41-43%: the feed is a fifth of the time, the rest is inside the block
+// (the pipeline's drain and the epilogue of each product). Half of each
+// key tile multicast by TMA to both members (16 KB per 1 M) was no faster
+// than the clusters alone, and slower end to end.
 
 #pragma once
 
@@ -466,6 +482,7 @@ struct DotsLaunch {
   DotsParams p;
   const int32_t *products, *targets, *items;
   int n_items, tiles;
+  int cluster;  // blocks of a cluster along the batch tile: 1 or 2
   size_t smem;
 };
 
@@ -473,8 +490,13 @@ inline cudaError_t make_dots(DotsLaunch& d, const int8_t* lhs, int lhs_stride,
                              const int8_t* key, int rows, int key_k1,
                              int n_steps, const int32_t* products,
                              const int32_t* targets, const int32_t* items,
-                             int n_items, int stages, int batch, int k1,
-                             int n, int m, int a_stride, int b_stride) {
+                             int n_items, int stages, int cluster,
+                             int batch, int k1, int n, int m, int a_stride,
+                             int b_stride) {
+  d.tiles = (batch + kDotRows - 1) / kDotRows;
+  if ((cluster != 1 && cluster != 2) || d.tiles % cluster)
+    return cudaErrorInvalidValue;
+  d.cluster = cluster;
   cudaError_t err = make_lhs_map(&d.a_map, lhs, batch, lhs_stride);
   if (err != cudaSuccess) return err;
   err = make_key_map(&d.b_map, key, rows, key_k1, n_steps);
@@ -491,7 +513,6 @@ inline cudaError_t make_dots(DotsLaunch& d, const int8_t* lhs, int lhs_stride,
   d.targets = targets;
   d.items = items;
   d.n_items = n_items;
-  d.tiles = (batch + kDotRows - 1) / kDotRows;
   d.smem = dots_smem_bytes(stages, m);
   return cudaSuccess;
 }

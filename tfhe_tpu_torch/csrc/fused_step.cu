@@ -254,8 +254,8 @@ int fused_step(const int32_t* acc, const int8_t* key_step, const int32_t* bara,
   if (n_items != k1 * 4 || stage_rows < 1) return (int)cudaErrorInvalidValue;
   DotsLaunch dots;
   err = make_dots(dots, lhs, p.lhs_stride, key_step, total_rows * p.pt, k1, 1,
-                  products, targets, items, n_items, stages, batch, k1, n, m,
-                  0, 0);
+                  products, targets, items, n_items, stages, 1, batch, k1, n,
+                  m, 0, 0);
   if (err != cudaSuccess) return (int)err;
   const FusedArgs a = {acc, bara, lhs, out, ready, n_items, stage_rows,
                        probe, max_blocks};

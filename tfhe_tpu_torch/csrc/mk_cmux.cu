@@ -60,12 +60,12 @@ cudaError_t make_mk_dots(DotsLaunch& dots, const Params& p, const int8_t* lhs,
                          const int8_t* operand, int n_steps, int total_rows,
                          int nzn, const int32_t* products,
                          const int32_t* targets, const int32_t* items,
-                         int n_items, int stages) {
+                         int n_items, int stages, int cluster) {
   const int lt = p.l * kT;
   cudaError_t err = make_dots(dots, lhs, p.lhs_stride, operand,
                               total_rows * nzn * lt, 1, n_steps, products,
-                              targets, items, n_items, stages, p.batch, p.k1,
-                              p.n, p.m, p.pt, nzn * lt);
+                              targets, items, n_items, stages, cluster,
+                              p.batch, p.k1, p.n, p.m, p.pt, nzn * lt);
   if (err != cudaSuccess) return err;
   return allow_dots_smem(dots);
 }
@@ -80,9 +80,9 @@ int tfhe_mk_cmux_step(int32_t* acc, const int8_t* e_step,
                       const int32_t* bara, int8_t* lhs, const int32_t* combos,
                       int n_combos, const int32_t* products,
                       const int32_t* targets, const int32_t* items,
-                      int n_items, int stages, int batch, int k1, int n,
-                      int l, int b, int m, int lhs_rows, int total_rows,
-                      int nzn, int offset, void* stream) {
+                      int n_items, int stages, int cluster, int batch,
+                      int k1, int n, int l, int b, int m, int lhs_rows,
+                      int total_rows, int nzn, int offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p;
   cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
@@ -90,7 +90,7 @@ int tfhe_mk_cmux_step(int32_t* acc, const int8_t* e_step,
   if (err != cudaSuccess) return (int)err;
   DotsLaunch dots;
   err = make_mk_dots(dots, p, lhs, e_step, 1, total_rows, nzn, products,
-                     targets, items, n_items, stages);
+                     targets, items, n_items, stages, cluster);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_step(acc, dots, 0, true, bara, lhs, p, st);
 }
@@ -102,10 +102,10 @@ int tfhe_mk_blind_rotate_chunk(int32_t* acc, const int8_t* e_chunk,
                                const int32_t* combos, int n_combos,
                                const int32_t* products,
                                const int32_t* targets, const int32_t* items,
-                               int n_items, int stages, int batch, int k1,
-                               int n, int l, int b, int m, int n_steps,
-                               int lhs_rows, int total_rows, int nzn,
-                               int offset, void* stream) {
+                               int n_items, int stages, int cluster,
+                               int batch, int k1, int n, int l, int b, int m,
+                               int n_steps, int lhs_rows, int total_rows,
+                               int nzn, int offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p;
   cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
@@ -113,7 +113,7 @@ int tfhe_mk_blind_rotate_chunk(int32_t* acc, const int8_t* e_chunk,
   if (err != cudaSuccess) return (int)err;
   DotsLaunch dots;
   err = make_mk_dots(dots, p, lhs, e_chunk, n_steps, total_rows, nzn,
-                     products, targets, items, n_items, stages);
+                     products, targets, items, n_items, stages, cluster);
   if (err != cudaSuccess) return (int)err;
   for (int s = 0; s < n_steps; ++s) {
     err = launch_step(acc, dots, s, true, bara_t + (size_t)s * batch, lhs,
@@ -133,10 +133,11 @@ int tfhe_mk_blind_rotate_compact(int32_t* acc, const int8_t* limbs,
                                  const int32_t* combos, int n_combos,
                                  const int32_t* products,
                                  const int32_t* targets, const int32_t* items,
-                                 int n_items, int stages, int batch, int k1,
-                                 int n, int l, int b, int m, int n_steps,
-                                 int lhs_rows, int total_rows, int nzn,
-                                 int offset, void* stream) {
+                                 int n_items, int stages, int cluster,
+                                 int batch, int k1, int n, int l, int b,
+                                 int m, int n_steps, int lhs_rows,
+                                 int total_rows, int nzn, int offset,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p;
   cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
@@ -144,7 +145,7 @@ int tfhe_mk_blind_rotate_compact(int32_t* acc, const int8_t* limbs,
   if (err != cudaSuccess) return (int)err;
   DotsLaunch dots;
   err = make_mk_dots(dots, p, lhs, scratch, 1, total_rows, nzn, products,
-                     targets, items, n_items, stages);
+                     targets, items, n_items, stages, cluster);
   if (err != cudaSuccess) return (int)err;
   const size_t limbs_step = (size_t)4 * nzn * l * 2 * n;  // x 4000 steps > 2^31
   for (int s = 0; s < n_steps; ++s) {

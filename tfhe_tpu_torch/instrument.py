@@ -19,8 +19,10 @@ it (`utils` imports `api`, which imports `bootstrap`).
   the kernel wrappers' launches under the names of
   `ops.kernel_wrappers()`; `path.<form>`, one a rotation by the path it
   took (`baked`, `dense`, `compact`, `plain`; `mk_compact`, `mk_chunk`,
-  `mk_step`, `mk_plain`); and `built.<table>`, one a cache miss of a
-  cached table or library build (`cached_build`), whose host seconds
+  `mk_step`, `mk_plain`); `dots.clustered`, one a C entry call whose
+  dots launches run in thread-block clusters (`ops/dots.py:dots_args`);
+  and `built.<table>`, one a cache miss of a cached table or library build
+  (`cached_build`), whose host seconds
   `seconds()` keeps. `ops.reset_launches()` / `ops.launches()` read the
   counts, `ops.build_seconds()` the seconds; the entry points log both.
 """

@@ -95,7 +95,8 @@ def load() -> ctypes.CDLL:
     """Build if needed, then load the library with its C signatures."""
     lib = ctypes.CDLL(str(build()))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    dots = [vp, vp, vp, i32, i32]  # products targets items n_items stages
+    # products targets items, n_items stages cluster
+    dots = [vp, vp, vp, i32, i32, i32]
     lib.tfhe_blind_rotate.argtypes = [
         vp, vp, vp, vp, vp, i32,  # acc key bara lhs combos n_combos
         *dots, *[i32] * 10, vp]  # sizes, stream

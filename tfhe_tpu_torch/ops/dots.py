@@ -25,6 +25,12 @@ several ranges, whose blocks then add into acc with atomics (exact for
 integers), only where that fills the card better: when the batch is small,
 or when one column has many more products than the others (the multi-key
 columns of the last parties).
+
+Clusters. The blocks of one work item over different batch tiles read the
+same key tiles in the same order. Where the batch tiles pair up, a launch
+runs them as thread-block clusters of two blocks along the batch tile
+(`cluster_size`), which the card schedules together; `dots_args` counts
+such a call in the `dots.clustered` counter of `instrument`.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import math
 
 import torch
 
-from ..instrument import cached_build
+from ..instrument import cached_build, count
 
 CHUNK = 128  # contraction bytes per ring slot (one 128-byte swizzle row)
 ROW_TILE = 64  # batch rows per block: the wgmma M
@@ -216,6 +222,13 @@ def work_items(tables: DotsTables, tiles: int, target_blocks: int) -> tuple:
     return tuple(item for _, item in items)
 
 
+def cluster_size(tiles: int) -> int:
+    """Blocks of a thread-block cluster along the batch tile, which run
+    one work item together: 2 where the batch tiles pair up, else 1 (a
+    plain launch). It divides `tiles`."""
+    return 2 if tiles % 2 == 0 else 1
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: str) -> int:
     return torch.cuda.get_device_properties(torch.device(device)) \
@@ -243,14 +256,18 @@ def _device_items(tables: DotsTables, tiles: int, target_blocks: int,
 
 def dots_args(tables: DotsTables, batch: int, device: torch.device) -> tuple:
     """What every C entry takes for its dots launches: (products, targets,
-    items, n_items, stages), the tables on `device`."""
+    items, n_items, stages, cluster), the tables on `device`; counts a
+    clustered call in `dots.clustered`."""
     dev = str(device)
     stages = ring_stages(tables.m)
     per_sm = max(1, min(2, _SM_SMEM // (smem_bytes(tables.m, stages)
                                         + _RESERVED)))
     tiles = -(-batch // ROW_TILE)
+    cluster = cluster_size(tiles)
+    if cluster > 1:
+        count("dots.clustered")
     products, targets = _device_rows(tables, dev)
     items, n_items = _device_items(tables, tiles,
                                    _WAVES * per_sm * _sm_count(dev), dev)
     return (products.data_ptr(), targets.data_ptr(), items.data_ptr(),
-            n_items, stages)
+            n_items, stages, cluster)
