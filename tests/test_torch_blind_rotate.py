@@ -14,7 +14,8 @@
   an emulation of the dots kernel's tile addressing (TMA box, 128-byte
   swizzle, wgmma descriptor) that reads back the reference byte.
 * The dots launches' cluster size (`ops/dots.py:cluster_size`) and the
-  `dots.clustered` counter.
+  `dots.clustered` counter; the blocks an SM holds
+  (`ops/dots.py:blocks_per_sm`) and the `dots.per_sm.<r>` counter.
 * On a CUDA card only: the kernel itself against the plain version
   (tests/test_torch_dots_cluster.py: the clustered launches).
 """
@@ -277,6 +278,31 @@ def test_cluster_pairs_batch_tiles_and_counts_clustered(tiles, cluster,
         assert args[-1] == cluster
     assert instrument.counts().get("dots.clustered", 0) == \
         (3 if cluster > 1 else 0)
+    instrument.reset()
+
+
+@pytest.mark.parametrize("n_poly,depth,per_sm", [(256, 1, 2),
+                                                  (1024, 2, 1)])
+def test_blocks_per_sm_follow_m_and_count_per_call(n_poly, depth, per_sm,
+                                                   monkeypatch):
+    """At M = 2 (128_fast) two dots blocks share an SM, at M = 8 (the
+    128-bit preset) one; each C entry call counts once in
+    `dots.per_sm.<r>` and the work items are cut for r blocks an SM."""
+    m = n_poly // 128
+    assert dots.blocks_per_sm(m) == per_sm
+    assert per_sm * (dots.smem_bytes(m, dots.ring_stages(m)) + 1024) \
+        <= 228 * 1024
+    monkeypatch.setattr(dots, "_sm_count", lambda device: 132)
+    k1, l, b = (5, 2, 8) if m == 2 else (2, 3, 7)
+    tables = dots_tables(karatsuba_plan(m, depth, b), k1, l, 128)
+    instrument.reset()
+    for _ in range(3):
+        args = dots.dots_args(tables, 4096, "cpu")
+    seen = {k: n for k, n in instrument.counts().items()
+            if k.startswith("dots.")}
+    assert seen == {"dots.clustered": 3, f"dots.per_sm.{per_sm}": 3}
+    items = dots.work_items(tables, 64, 2 * per_sm * 132)
+    assert args[3] == len(items)
     instrument.reset()
 
 

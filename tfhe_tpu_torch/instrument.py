@@ -21,8 +21,10 @@ it (`utils` imports `api`, which imports `bootstrap`).
   took (`baked`, `dense`, `compact`, `plain`; `mk_compact`, `mk_chunk`,
   `mk_step`, `mk_plain`); `dots.clustered`, one a C entry call whose
   dots launches run in thread-block clusters (`ops/dots.py:dots_args`);
-  and `built.<table>`, one a cache miss of a cached table or library build
-  (`cached_build`), whose host seconds
+  `dots.per_sm.<r>`, one a C entry call of the dots by the r blocks (1 or
+  2) an SM holds at its M, for which the work items were cut
+  (`ops/dots.py:blocks_per_sm`); and `built.<table>`, one a cache miss
+  of a cached table or library build (`cached_build`), whose host seconds
   `seconds()` keeps. `ops.reset_launches()` / `ops.launches()` read the
   counts, `ops.build_seconds()` the seconds; the entry points log both.
 """

@@ -31,6 +31,11 @@ same key tiles in the same order. Where the batch tiles pair up, a launch
 runs them as thread-block clusters of two blocks along the batch tile
 (`cluster_size`), which the card schedules together; `dots_args` counts
 such a call in the `dots.clustered` counter of `instrument`.
+
+Occupancy. The ring and the M blocks' sums set a block's shared memory,
+and so how many blocks an SM holds at once (`blocks_per_sm`: 2 at M <= 4,
+1 from M = 8); the work items are cut for that many. `dots_args` counts each
+call in `dots.per_sm.<r>` by that number r.
 """
 
 from __future__ import annotations
@@ -189,6 +194,13 @@ def smem_bytes(m: int, stages: int) -> int:
     return stages * SLOT_BYTES + m * SUMS_BYTES + 2 * stages * 8
 
 
+def blocks_per_sm(m: int) -> int:
+    """Dots blocks one SM holds at once at M output blocks (1 or 2): as
+    many as its shared memory fits at `ring_stages(m)` slots."""
+    return max(1, min(2, _SM_SMEM // (smem_bytes(m, ring_stages(m))
+                                      + _RESERVED)))
+
+
 def work_items(tables: DotsTables, tiles: int, target_blocks: int) -> tuple:
     """The blocks' work: (k*4 + wt, begin, end, atomic) rows, heaviest
     first. A column's product list is cut into ranges of about equal slots
@@ -257,11 +269,12 @@ def _device_items(tables: DotsTables, tiles: int, target_blocks: int,
 def dots_args(tables: DotsTables, batch: int, device: torch.device) -> tuple:
     """What every C entry takes for its dots launches: (products, targets,
     items, n_items, stages, cluster), the tables on `device`; counts a
-    clustered call in `dots.clustered`."""
+    clustered call in `dots.clustered`, and every call in `dots.per_sm.<r>`
+    by the blocks an SM holds."""
     dev = str(device)
     stages = ring_stages(tables.m)
-    per_sm = max(1, min(2, _SM_SMEM // (smem_bytes(tables.m, stages)
-                                        + _RESERVED)))
+    per_sm = blocks_per_sm(tables.m)
+    count(f"dots.per_sm.{per_sm}")
     tiles = -(-batch // ROW_TILE)
     cluster = cluster_size(tiles)
     if cluster > 1:
