@@ -1,7 +1,6 @@
 """Smoke run of tfhe_tpu_torch on one CUDA card: build, check, drive.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --rows-against DIR   # see rows_against()
 
 Phases, one line or a few each (any failure exits non-zero, nothing falls
 back):
@@ -184,13 +183,10 @@ back):
    without a rotation); (c) `tools.pbs_bench`: 4096/4096, within 5% of
    phase 10 (both time the second of two LUT calls over 4096 messages);
    (d) `tools.profile_bootstrap` at the 128 preset x 4096 and the 80-bit
-   preset x 1, 8, 64: from each `trace.json`, kernel time against the
-   traced layer's span (busy share), 2n rotation launches plus the rest,
-   the mean duration of `rotate_decompose_kernel` and `leaf_dots_kernel`,
-   the mean gap between rotation kernels, the host's enqueue time a
-   step and each launch call's lead on its kernel, beside phase 17's
-   unprofiled layer (not a speed: wall time under the profiler); then
-   together (checks of the paths; their rates are read under each
+   preset x 1, 8, 64: exit 0, its four lines with the reference's heads,
+   and in each `trace.json` n launches each of `rotate_decompose_kernel`
+   and `leaf_dots_kernel` (the benchmark's per-layer metrics time them);
+   then together (checks of the paths; their rates are read under each
    other's load): (b) `python -m tfhe_tpu_torch.graft_entry --backend
    gloo` (`dryrun_multichip(8)`, eight toy ranks sharing cuda:0 over
    gloo, then `entry()`) and `dryrun_multichip(1)` over NCCL in this
@@ -757,9 +753,9 @@ def phase3_fused(ks, gen, card):
                    chain(cmux_step_karatsuba_kernel, acc, key_km, bara_t, kw),
                    blind_rotate_kernel(acc, key_km, bara_t, **kw))
 
-    # one step's bound at B = 4096 at each plan (the shapes --rows-against
-    # times): the useful operations of step_operations; the accumulator
-    # read and written, the key step and bara read once
+    # one step's bound at B = 4096 at each plan: the useful operations of
+    # step_operations; the accumulator read and written, the key step and
+    # bara read once
     for preset, k1, n, l, b, depth in FUSED_PLANS:
         plan = karatsuba_plan(n // T, depth, b)
         useful, _ = step_operations(SimpleNamespace(
@@ -2496,14 +2492,13 @@ def logged_launches(err: str, tag: str) -> dict:
     return ast.literal_eval(line.split(": ", 1)[1])
 
 
-def phase17_bench(card, phase4_rate) -> dict:
-    """Each preset's bench line, by preset."""
-    recs = {}
+def phase17_bench(card, phase4_rate):
+    """Each preset's bench line."""
     for which, kernel in BENCH_PRESETS.items():
         rc, out, err, secs = run_entry(
             "bench", env={"TFHE_TPU_BENCH_PARAMS": which})
         entry_ok(f"bench {which}", rc, out, err)
-        rec = recs[which] = json.loads(out.strip().splitlines()[-1])
+        rec = json.loads(out.strip().splitlines()[-1])
         check(set(rec) == BENCH_KEYS, f"bench {which}: keys {sorted(rec)}")
         check(rec["params"] == which and rec["correct"] == rec["of"] == BATCH,
               f"bench {which}: {rec['correct']}/{rec['of']} correct")
@@ -2526,7 +2521,6 @@ def phase17_bench(card, phase4_rate) -> dict:
             line += (f" | phase 4 {phase4_rate:.1f} gates/s, "
                      f"{100 * off:+.1f}% (limit {100 * BENCH_AGREE:.0f}%)")
         print(f"{line} | {card}", flush=True)
-    return recs
 
 
 def suite_limit(rec: dict):
@@ -2579,7 +2573,7 @@ def phase17_suite(card):
           f"{card}", flush=True)
 
 
-def phase17_sweep(card) -> list:
+def phase17_sweep(card):
     """The sweep's lines."""
     rc, out, err, secs = run_entry(
         "tools.serving_bench", timeout=2 * ENTRY_TIMEOUT_S,
@@ -2604,7 +2598,6 @@ def phase17_sweep(card) -> list:
                   for r in rows) + f" | {card}", flush=True)
     print(f"[17 entry points] serving_bench: {len(recs)} lines, all correct "
           f"| {secs:.1f} s | {card}", flush=True)
-    return recs
 
 
 def phase17_examples(card):
@@ -2638,19 +2631,16 @@ def phase17_examples(card):
               f"{lines[-1]} ({secs2:.1f} s) | {card}", flush=True)
 
 
-def phase17_entry_points(dev, card, phase4_rate) -> dict:
-    """Each entry point of the port as a subprocess on the card; returns
-    the bench lines by preset and the sweep's lines (phase 18 reads
-    them)."""
+def phase17_entry_points(dev, card, phase4_rate):
+    """Each entry point of the port as a subprocess on the card."""
     fresh_device(dev)  # the entry points share the card with this process
     t_phase = time.perf_counter()
-    bench = phase17_bench(card, phase4_rate)
+    phase17_bench(card, phase4_rate)
     phase17_suite(card)
-    sweep = phase17_sweep(card)
+    phase17_sweep(card)
     phase17_examples(card)
     print(f"[17 entry points] phase 17 took "
           f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
-    return {"bench": bench, "sweep": sweep}
 
 
 # --- phase 18: the last entry-point twins ---
@@ -2774,68 +2764,14 @@ def phase18_pbs(card, phase10_rate):
           f"{secs:.1f} s | {card}", flush=True)
 
 
-def trace_split(events: list, n_steps: int) -> dict:
-    """A traced layer's kernels from its Chrome trace (us): kernel time
-    against the layer's span (its first host op to its last kernel's
-    end), the 2*n rotation launches, their mean durations, the mean gap
-    between consecutive rotation kernels, the span before the rotation's
-    first kernel and after its last, and the host's side: its enqueue
-    time a step and each launch call's lead on its kernel."""
-    import statistics
-
-    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
-                     key=lambda e: e["ts"])
-    check(bool(kernels), "the trace holds no kernel")
-    host = [e["ts"] for e in events if e.get("cat") == "cpu_op"]
-    end = max(e["ts"] + e["dur"] for e in kernels)
-    start = min(host + [kernels[0]["ts"]])
-    rot = [e for e in kernels if any(k in e["name"] for k in ROTATION_KERNELS)]
-    kinds = {k: [e["dur"] for e in rot if k in e["name"]]
-             for k in ROTATION_KERNELS}
-    check(all(len(d) == n_steps for d in kinds.values())
-          and len(rot) == 2 * n_steps,
-          f"rotation launches {[len(d) for d in kinds.values()]}, expected "
-          f"{n_steps} each")
-    gaps = [b["ts"] - (a["ts"] + a["dur"]) for a, b in zip(rot, rot[1:])]
-    calls = {e["args"]["correlation"]: e["ts"] for e in events
-             if e.get("cat") == "cuda_runtime" and "correlation"
-             in e.get("args", {})}
-    leads = [e["ts"] - calls[e["args"]["correlation"]] for e in rot
-             if e.get("args", {}).get("correlation") in calls]
-    rot_calls = sorted(calls[e["args"]["correlation"]] for e in rot
-                       if e.get("args", {}).get("correlation") in calls)
-    busy = sum(e["dur"] for e in kernels)
-    rot_end = rot[-1]["ts"] + rot[-1]["dur"]
-    return {
-        "wall_ms": (end - start) / 1e3, "kernel_ms": busy / 1e3,
-        "busy": busy / (end - start), "launches": len(kernels),
-        "others": len(kernels) - len(rot),
-        "mean_us": {k: statistics.fmean(d) for k, d in kinds.items()},
-        "gap_us": statistics.fmean(gaps),
-        "rotation_ms": (rot_end - rot[0]["ts"]) / 1e3,
-        "rotation_busy": sum(e["dur"] for e in rot)
-        / (rot_end - rot[0]["ts"]),
-        "before_ms": (rot[0]["ts"] - start) / 1e3,
-        "after_ms": (end - rot_end) / 1e3,
-        "enqueue_us": ((rot_calls[-1] - rot_calls[0]) / (len(rot_calls) - 1)
-                       * 2 if len(rot_calls) > 1 else None),
-        "lead_us": (statistics.median(leads), max(leads)) if leads else None,
-    }
-
-
-def phase18_profile(card, entry_lines):
-    """(d) profile_bootstrap at 128 x 4096 and 80 x 1, 8, 64: the split of
-    each traced layer, beside the unprofiled layer of phase 17."""
+def phase18_profile(card):
+    """(d) profile_bootstrap at 128 x 4096 and 80 x 1, 8, 64: its lines,
+    and n launches of each rotation kernel in the traced layer."""
     import os
     import tempfile
 
     from tfhe_tpu_torch import params as presets
 
-    sweep = {r["batch"]: r["ms_per_layer"] for r in entry_lines["sweep"]
-             if (r["preset"], r["form"]) == ("80", "baked")}
-    unprofiled = {("128", BATCH): BATCH * 1e3
-                  / entry_lines["bench"]["128"]["value"],
-                  **{("80", b): ms for b, ms in sweep.items()}}
     heads = ("measured: ", "byte-MACs: ", "HBM bytes: ", "ALU elems: ")
     for which, batch in PROFILE_RUNS:
         n_steps = {"128": presets.tfhe_parameters_128,
@@ -2849,29 +2785,15 @@ def phase18_profile(card, entry_lines):
             check([ln[:len(h)] for ln, h in zip(lines, heads)] == list(heads),
                   f"profile_bootstrap {which} {batch}: {lines}")
             with open(os.path.join(tmp, "trace.json")) as f:
-                split = trace_split(json.load(f)["traceEvents"], n_steps)
-        ref_ms = unprofiled[(which, batch)]
-        lead = ("n/a (no launch calls in the trace)" if split["lead_us"]
-                is None else f"median {split['lead_us'][0]:.1f} us, max "
-                f"{split['lead_us'][1]:.1f} us")
-        enqueue = ("n/a" if split["enqueue_us"] is None
-                   else f"{split['enqueue_us']:.2f} us")
-        print(f"[18 profile] PROFILE_PARAMS={which} batch {batch}: traced "
-              f"layer {split['wall_ms']:.3f} ms from its first host op to its "
-              f"last kernel, kernels {split['kernel_ms']:.3f} ms: busy "
-              f"{100 * split['busy']:.1f}% | {split['launches']} launches = "
-              f"2 x {n_steps} rotation + {split['others']} others | "
-              f"rotate_decompose {split['mean_us'][ROTATION_KERNELS[0]]:.2f} "
-              f"us, leaf_dots {split['mean_us'][ROTATION_KERNELS[1]]:.2f} us "
-              f"mean, gap between rotation kernels {split['gap_us']:.2f} us "
-              f"mean | rotation {split['rotation_ms']:.3f} ms = "
-              f"{1e3 * split['rotation_ms'] / n_steps:.2f} us a step, busy "
-              f"{100 * split['rotation_busy']:.1f}%; before it "
-              f"{split['before_ms']:.3f} ms, after it {split['after_ms']:.3f} "
-              f"ms | host enqueue {enqueue} "
-              f"a step, launch call's lead on its kernel {lead} | "
-              f"unprofiled layer (phase 17) {ref_ms:.3f} ms = "
-              f"{1e3 * ref_ms / n_steps:.2f} us a step | tool: "
+                names = [e["name"] for e in json.load(f)["traceEvents"]
+                         if e.get("cat") == "kernel"]
+        kinds = [sum(k in name for name in names) for k in ROTATION_KERNELS]
+        check(kinds == [n_steps] * len(ROTATION_KERNELS),
+              f"profile_bootstrap {which} {batch}: rotation launches "
+              f"{kinds}, expected {n_steps} each")
+        print(f"[18 profile] PROFILE_PARAMS={which} batch {batch}: "
+              f"{len(names)} launches = 2 x {n_steps} rotation + "
+              f"{len(names) - 2 * n_steps} others | tool: "
               f"{' / '.join(lines)} | {secs:.1f} s | {card}", flush=True)
 
 
@@ -2896,7 +2818,7 @@ def scaling_checked(args, sizes, run, what, card):
           f" one rotation launch a rank | {secs:.1f} s | {card}", flush=True)
 
 
-def phase18_twins(dev, card, real_key, phase10_rate, entry_lines):
+def phase18_twins(dev, card, real_key, phase10_rate):
     """The last entry-point twins, each a subprocess but (a)'s checks: the
     timed runs (pbs_bench, the profiles) one at a time, then the dry runs
     and the scaling runs together."""
@@ -2904,349 +2826,16 @@ def phase18_twins(dev, card, real_key, phase10_rate, entry_lines):
     t_phase = time.perf_counter()
     phase18_entry(dev, card, real_key)
     phase18_pbs(card, phase10_rate)
-    phase18_profile(card, entry_lines)
+    phase18_profile(card)
     phase18_beside(card)
     print(f"[18 twins] phase 18 took {time.perf_counter() - t_phase:.1f} s | "
           f"{card}", flush=True)
-
-
-def build_earlier(csrc, out_dir):
-    """An earlier tree's kernels: its csrc/*.cu compiled (one nvcc per
-    source, all started together) and linked into one library under
-    out_dir, loaded with the C signatures this mode calls."""
-    import ctypes
-
-    from tfhe_tpu_torch.ops import _build
-
-    sources = sorted(csrc.glob("*.cu"))
-    objs = [out_dir / f"earlier_{src.stem}.o" for src in sources]
-    procs = [subprocess.Popen([_build._nvcc(), *_build._FLAGS, "-c", "-o",
-                               str(obj), str(src)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(sources, objs)]
-    for src, proc in zip(sources, procs):
-        out, _ = proc.communicate(timeout=600)
-        check(proc.returncode == 0, f"earlier {src.name}: nvcc failed\n{out}")
-    lib_path = out_dir / "libearlier.so"
-    subprocess.run([_build._nvcc(), "-shared", "-o", str(lib_path),
-                    *map(str, objs)], check=True, timeout=600)
-    for obj in objs:
-        obj.unlink()
-    lib = ctypes.CDLL(str(lib_path.resolve()))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.tfhe_rotate_decompose_rows.argtypes = [vp, vp, vp, vp] + [i32] * 9 \
-        + [vp]
-    lib.tfhe_rotate_decompose.argtypes = [vp, vp, vp] + [i32] * 8 + [vp]
-    lib.tfhe_expand_step.argtypes = [vp, vp, vp] + [i32] * 5 + [vp]
-    lib.tfhe_cmux_step_karatsuba.argtypes = [vp] * 7 + [i32] * 8 + [vp]
-    return lib, lib_path
-
-
-def earlier_fused_tables(plan, p, t):
-    """The tables of the fused kernel before its Hopper redesign (a 16-row
-    tile per block, the reference-layout key): the segment table (each
-    digit segment's mask of raw blocks and limb mode), the terms and their
-    start per output block, as `kernel_tables` gives them."""
-    from tfhe_tpu_torch.ops.blind_rotate import kernel_tables
-
-    combos, terms, term_start, lhs_rows = kernel_tables(plan, p, t)
-    seg_table = [(1 << seg, 0) if seg < plan.m else (0, 0)
-                 for seg in range(lhs_rows)]
-    for dst, mask, two_limb, hi in combos:
-        seg_table[dst] = (mask, 1 if two_limb else 0)
-        if two_limb:
-            seg_table[hi] = (mask, 2)
-    return seg_table, terms, term_start, lhs_rows
-
-
-def turns(before, this, reps):
-    """Earlier, this, this, earlier: (earlier ms, this ms, the four)."""
-    times = [cuda_ms(fn, reps=reps) for fn in (before, this, this, before)]
-    return (times[0] + times[3]) / 2, (times[1] + times[2]) / 2, times
-
-
-# Phases 5, 8 and 12 of a tree's own chip_smoke.py (PR 6's or later), run
-# in that tree's directory: the compact and multi-key paths, the ones
-# whose expansion changed.
-_PATHS_RUN = r"""
-import sys
-import torch
-sys.path.insert(0, ".")
-import chip_smoke as c
-import tfhe_tpu_torch as tp
-from tfhe_tpu_torch.ops import _build
-_build.load()  # the build, if any, before the timed chains
-dev = torch.device("cuda", 0)
-torch.cuda.set_device(dev)
-ks = c.Kernels()
-for name in ("blind_rotate_compact", "expand_karatsuba_step",
-             "rotate_decompose_rows", "mk_blind_rotate_compact",
-             "mk_blind_rotate_chunk", "cmux_step_sparse"):
-    ks.entry(name, "", "")
-c.phase5_compact(tp, ks, dev, sys.argv[1])
-c.phase8_mk_two_party(tp, ks, dev, sys.argv[1])
-c.phase12_radix_reliable(tp, dev, sys.argv[1])
-"""
-_PATHS_METRICS = (("128_fast8 gates/s", "[5 main path]", "gates/s"),
-                  ("MK 2-party gates/s", "[8 MK main path]", "gates/s"),
-                  ("MK PBS LUTs/s", "[8 MK PBS]", "LUTs/s"),
-                  ("128_radix_reliable adds/s", "[12 radix reliable]",
-                   "adds/s"))
-
-
-def paths_against(earlier, card):
-    """The end-to-end figures of the paths the expansion runs on, earlier
-    tree, this, this, earlier, each turn a process of its own; returns
-    {metric: {"earlier": [2 turns], "this": [2 turns]}}."""
-    import re
-
-    turns = {name: {"earlier": [], "this": []} for name, _, _ in
-             _PATHS_METRICS}
-    for tree, side in ((earlier, "earlier"), (".", "this"), (".", "this"),
-                       (earlier, "earlier")):
-        run = subprocess.run([sys.executable, "-c", _PATHS_RUN, card],
-                             cwd=tree, capture_output=True, text=True,
-                             timeout=900)
-        check(run.returncode == 0,
-              f"paths of {tree}: exit {run.returncode}\n{run.stderr[-2000:]}")
-        for name, tag, unit in _PATHS_METRICS:
-            line = next(ln for ln in run.stdout.splitlines()
-                        if ln.startswith(tag))
-            turns[name][side].append(
-                float(re.search(rf"= ([0-9.]+) {unit}", line).group(1)))
-    for name, vals in turns.items():
-        print(f"[paths] {name}: earlier {vals['earlier']}, this "
-              f"{vals['this']} (turns earlier, this, this, earlier) | "
-              f"{card}", flush=True)
-    return turns
-
-
-def rows_against(earlier: str) -> int:
-    """`python3 chip_smoke.py --rows-against DIR`: this tree's hand-written
-    kernels that a recent PR redesigned against those of the tree unpacked
-    at DIR (an earlier commit, PR 6's or later: its csrc/*.cu are built as
-    they are and called through their C entries), on one card in one
-    process, each shape timed earlier, this, this, earlier with CUDA events
-    and the outputs compared byte for byte:
-
-    * the rotate/decompose kernel at the presets' shapes and its dense twin;
-    * the expansion, K-major and in the reference layout, at the paths'
-      shapes (`expand_shapes`), beside its byte bound, with this kernel's
-      timing probes: the sums alone, the stores of a constant, an empty
-      grid (the launch floor);
-    * the fused step at 128_fast, 128_pbs, 128_radix and the 80-bit preset,
-      B = 4096 (the earlier kernel handed the reference-layout step, this
-      one the K-major step), beside its plain version and the two-launch
-      step (`blind_rotate_kernel` over the same 2 steps, per step), with
-      this kernel's probes: phase 1 alone, phase 2 alone, and the blocks
-      the card holds at once;
-    * the end-to-end figures of the compact and multi-key paths (phases 5,
-      8 and 12 of each tree's own script, `paths_against`), earlier, this,
-      this, earlier.
-
-    Writes chiprun_out/rows_against.json."""
-    import ctypes
-    from pathlib import Path
-
-    from tfhe_tpu_torch.ops import _build, cmux_step, compact
-    from tfhe_tpu_torch.ops.blind_rotate import (
-        blind_rotate_kernel,
-        combo_words,
-        digit_rows_kernel,
-        digit_rows_plain,
-    )
-    from tfhe_tpu_torch.ops.dots import from_kmajor, int_table, to_kmajor
-    from tfhe_tpu_torch.ops.fused_step import (
-        cmux_step_karatsuba_kernel,
-        cmux_step_karatsuba_plain,
-        cmux_step_karatsuba_probe,
-    )
-    from tfhe_tpu_torch.tgsw import decomp_offset
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    out_dir = Path("chiprun_out")
-    out_dir.mkdir(exist_ok=True)
-    old, lib_path = build_earlier(
-        (Path(earlier) / "tfhe_tpu_torch" / "csrc").resolve(), out_dir)
-    new_lib = _build.load()
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    record = {"card": card, "rows": {}, "expand": {}, "fused": {}}
-
-    def earlier_rows(acc, bara, combos, lhs_rows, kw):
-        bsz, k1, n = acc.shape
-        lhs = torch.empty((bsz, lhs_rows * k1 * kw["l"] * T),
-                          dtype=torch.int8, device=dev)
-        words = combo_words(combos, n // T, lhs_rows)
-        table = torch.tensor(words or [0], dtype=torch.int32)
-        err = old.tfhe_rotate_decompose_rows(
-            acc.data_ptr(), bara.data_ptr(), lhs.data_ptr(),
-            table.data_ptr(), len(words), bsz, k1, n, kw["l"], kw["b"],
-            n // T, lhs_rows, kw["offset"], stream)
-        check(err == 0, f"earlier rotate/decompose kernel: error {err}")
-        return lhs
-
-    for shape in ROW_TIMED:
-        batch = 256 if shape == "MK_8party_K9" else BATCH
-        acc, bara, combos, lhs_rows, kw, first = rows_case(gen, shape, batch)
-        got = digit_rows_kernel(acc, bara, combos, lhs_rows, **kw)
-        check(torch.equal(got[:, first:], earlier_rows(
-            acc, bara, combos, lhs_rows, kw)[:, first:]) and torch.equal(
-            got[:, first:], digit_rows_plain(acc, bara, combos, lhs_rows,
-                                             **kw)[:, first:]),
-              f"{shape}: this kernel != the earlier one or plain")
-        was, now, times = turns(
-            lambda: earlier_rows(acc, bara, combos, lhs_rows, kw),
-            lambda: digit_rows_kernel(acc, bara, combos, lhs_rows, **kw), 10)
-        bound, by = rows_bound(acc, combos, lhs_rows, kw, first)
-        record["rows"][shape] = {"B": batch, "earlier_ms": was, "ms": now,
-                                 "turns_ms": times, "bound_ms": bound,
-                                 "bound_by": by}
-        print(f"[rows] {shape} B={batch}: earlier {was:.4f} ms, this "
-              f"{now:.4f} ms, bound {bound:.4f} ms by {by}; turns "
-              f"{[round(x, 4) for x in times]} | {card}", flush=True)
-
-    # the dense step's kernel: 128_fast at depth 0, B = 4096
-    acc, _, bara_t, kw = random_case(gen, 5, 256, 2, 8, 0, 2, BATCH,
-                                     form="dense")
-    dims = (BATCH, 5, 256, 2, 8, 2, 1)
-    offset = cmux_step.decomp_offset(2, 8, True)
-
-    def dense(lib):
-        buf = torch.empty((BATCH, 1, 2 * 5 * 2 * T), dtype=torch.int8,
-                          device=dev)
-        err = lib.tfhe_rotate_decompose(acc.data_ptr(), bara_t[1].data_ptr(),
-                                        buf.data_ptr(), *dims, offset, stream)
-        check(err == 0, f"tfhe_rotate_decompose: error {err}")
-        return buf
-
-    check(torch.equal(dense(new_lib), dense(old)),
-          "dense: this kernel != the earlier one")
-    was, now, times = turns(lambda: dense(old), lambda: dense(new_lib), 10)
-    # acc read once, the digits (M*P*T bytes a row) written once
-    bound, by = bound_ms(nbytes(acc) + BATCH * 2 * 5 * 2 * T + 4 * BATCH, 0,
-                         PEAK_ALU_OPS_PER_S)
-    record["rows"]["dense_128_fast_depth0"] = {
-        "B": BATCH, "earlier_ms": was, "ms": now, "turns_ms": times,
-        "bound_ms": bound, "bound_by": by}
-    print(f"[rows] dense 128_fast depth 0 B={BATCH}: earlier {was:.4f} ms, "
-          f"this {now:.4f} ms, bound {bound:.4f} ms by {by}; turns "
-          f"{[round(x, 4) for x in times]} | {card}", flush=True)
-
-    # the expansion at the paths' shapes
-    for name in expand_shapes():
-        limbs, plan, (bound, by) = expand_case(gen, name)
-        masks = int_table([compact.entry_masks(plan)], str(dev))
-        _, p_rows, k1, n2 = limbs.shape
-        rec = {"bound_ms": bound, "bound_by": by}
-        for kmajor in (True, False):
-            rows = plan.total_rows * p_rows * T
-            shape = (k1, 4, T, rows) if kmajor else (rows, k1 * 4 * T)
-
-            def before(kmajor=kmajor, shape=shape):
-                out = torch.empty(shape, dtype=torch.int8, device=dev)
-                err = old.tfhe_expand_step(
-                    limbs.data_ptr(), masks.data_ptr(), out.data_ptr(),
-                    plan.total_rows, p_rows, k1, n2 // 2, int(kmajor),
-                    stream)
-                check(err == 0, f"earlier tfhe_expand_step: error {err}")
-                return out
-
-            def this(kmajor=kmajor):
-                return compact.expand_step_kernel(limbs, t=T, plan=plan,
-                                                  kmajor=kmajor)
-
-            check(torch.equal(this(), before()),
-                  f"expansion {name}: this kernel != the earlier one")
-            was, now, times = turns(before, this, 20)
-            tag = "kmajor" if kmajor else "reference"
-            rec[tag] = {"earlier_ms": was, "ms": now, "turns_ms": times}
-        for mode, what in ((1, "sums_only_ms"), (2, "stores_only_ms"),
-                           (3, "empty_grid_ms")):
-            rec[what] = cuda_ms(lambda: compact.expand_step_probe(
-                limbs, t=T, plan=plan, probe=mode), reps=20)
-        record["expand"][name] = rec
-        km = rec["kmajor"]
-        print(f"[expand] {name} K-major: earlier {km['earlier_ms']:.4f} ms, "
-              f"this {km['ms']:.4f} ms ({100 * bound / km['ms']:.1f}% of the "
-              f"bound {bound:.4f} ms by {by}); reference layout: earlier "
-              f"{rec['reference']['earlier_ms']:.4f}, this "
-              f"{rec['reference']['ms']:.4f} | probes: sums only "
-              f"{rec['sums_only_ms']:.4f}, stores only "
-              f"{rec['stores_only_ms']:.4f}, empty grid "
-              f"{rec['empty_grid_ms']:.4f} | turns "
-              f"{[round(x, 4) for x in km['turns_ms']]} | {card}", flush=True)
-
-    # the fused step at B = 4096, with its probes: phase 1 alone (the digit
-    # rows), phase 2 alone (the dots), the blocks the card holds at once
-    for preset, *dims in [FUSED_PLANS[0], FUSED_PLANS[3], FUSED_PLANS[1],
-                          FUSED_PLANS[4]]:
-        acc, key, bara_t, kw = random_case(gen, *dims, 2, BATCH)
-        key_km = to_kmajor(key)
-        step, step_km, bara = key[1], key_km[1], bara_t[1]
-        k1, n, l, b = dims[:4]
-        seg_table, terms, term_start, lhs_rows = earlier_fused_tables(
-            kw["plan"], k1 * l, T)
-        tables = [int_table(x, str(dev))
-                  for x in (seg_table, terms, [term_start])]
-        check(torch.equal(from_kmajor(step_km), step), "relayout")
-
-        def before():
-            out = torch.empty_like(acc)
-            err = old.tfhe_cmux_step_karatsuba(
-                acc.data_ptr(), step.data_ptr(), bara.data_ptr(),
-                out.data_ptr(), *(x.data_ptr() for x in tables), BATCH, k1,
-                n, l, b, n // T, lhs_rows, decomp_offset(l, b, b == 8),
-                stream)
-            check(err == 0, f"earlier fused step: error {err}")
-            return out
-
-        def this():
-            return cmux_step_karatsuba_kernel(acc, step_km, bara, **kw)
-
-        got = this()
-        check(torch.equal(got, before()) and torch.equal(
-            got, cmux_step_karatsuba_plain(acc, step, bara, **kw)),
-              f"fused {preset}: this kernel != the earlier one or plain")
-        was, now, times = turns(before, this, 5)
-        plain_ms = cuda_ms(
-            lambda: cmux_step_karatsuba_plain(acc, step, bara, **kw), reps=2)
-        rec = {"B": BATCH, "earlier_ms": was, "ms": now, "plain_ms": plain_ms,
-               "turns_ms": times}
-        rec["resident_blocks"] = cmux_step_karatsuba_probe(
-            acc, step_km, bara, probe=0, **kw)
-        for mode, what in ((1, "phase1_only_ms"), (2, "phase2_only_ms")):
-            rec[what] = cuda_ms(lambda: cmux_step_karatsuba_probe(
-                acc, step_km, bara, probe=mode, **kw), reps=5)
-        rotation = cuda_ms(lambda: blind_rotate_kernel(acc, key_km, bara_t,
-                                                       **kw), reps=3)
-        rec["rotation_step_ms"] = rotation / key_km.shape[0]
-        record["fused"][preset] = rec
-        print(f"[fused] {preset} B={BATCH}: earlier {was:.4f} ms, this "
-              f"{now:.4f} ms (phase 1 alone {rec['phase1_only_ms']:.4f}, "
-              f"phase 2 alone {rec['phase2_only_ms']:.4f}, "
-              f"{rec['resident_blocks']} resident blocks), plain "
-              f"{plain_ms:.4f} ms, blind_rotate_kernel "
-              f"{rec['rotation_step_ms']:.4f} ms a step; turns "
-              f"{[round(x, 4) for x in times]} | {card}", flush=True)
-        del key, key_km
-
-    record["paths"] = paths_against(earlier, card)
-    (out_dir / "rows_against.json").write_text(json.dumps(record, indent=1))
-    lib_path.unlink()
-    return 0
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--rows-against"]:
-        return rows_against(sys.argv[2])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -3273,7 +2862,7 @@ def main() -> int:
                    "rotate_decompose_kernelILi8ELb1E",
                    "rotate_decompose_kernelILi16ELb0E",
                    "leaf_dots_kernel", "mk_unit_dots_kernel",
-                   "expand_kernelILb0ELi0E", "expand_kernelILb1ELi0E",
+                   "expand_kernelILb0EE", "expand_kernelILb1EE",
                    "rotate_decompose_dense_kernelILi2E",
                    "rotate_decompose_dense_kernelILi8E",
                    "fused_step_kernelILi2ELb0E", "fused_step_kernelILi4ELb0E",
@@ -3313,8 +2902,8 @@ def main() -> int:
     phase15_jobs_debug_profiling(tp, ks, dev, card, wire)
     del wire
     phase16_multi_device(tp, dev, card, phase4_rate)
-    entry_lines = phase17_entry_points(dev, card, phase4_rate)
-    phase18_twins(dev, card, real_key, phase10_rate, entry_lines)
+    phase17_entry_points(dev, card, phase4_rate)
+    phase18_twins(dev, card, real_key, phase10_rate)
 
     for ent in ks.entries.values():
         check(ent["launches"] > 0,

@@ -267,7 +267,7 @@ def test_work_items_fill_the_card_and_cut_only_where_short():
 def test_cluster_pairs_batch_tiles_and_counts_clustered(tiles, cluster,
                                                        monkeypatch):
     """The dots launches' cluster size follows the batch tiles alone,
-    divides them, reaches the C entry as the last dots argument, and a
+    divides them, reaches the C entry in the dots struct, and a
     clustered call counts once in `dots.clustered`."""
     assert dots.cluster_size(tiles) == cluster and tiles % cluster == 0
     monkeypatch.setattr(dots, "_sm_count", lambda device: 132)
@@ -275,7 +275,7 @@ def test_cluster_pairs_batch_tiles_and_counts_clustered(tiles, cluster,
     instrument.reset()
     for _ in range(3):
         args = dots.dots_args(tables, tiles * dots.ROW_TILE - 5, "cpu")
-        assert args[-1] == cluster
+        assert args.cluster == cluster
     assert instrument.counts().get("dots.clustered", 0) == \
         (3 if cluster > 1 else 0)
     instrument.reset()
@@ -302,7 +302,7 @@ def test_blocks_per_sm_follow_m_and_count_per_call(n_poly, depth, per_sm,
             if k.startswith("dots.")}
     assert seen == {"dots.clustered": 3, f"dots.per_sm.{per_sm}": 3}
     items = dots.work_items(tables, 64, 2 * per_sm * 132)
-    assert args[3] == len(items)
+    assert args.n_items == len(items)
     instrument.reset()
 
 

@@ -52,45 +52,34 @@ extern "C" {
 
 // The first launch of a step alone: acc int32[B, K, N], bara int32[B] ->
 // the digit operand lhs int8[B, lhs_rows*P*T] (for b > 8 its raw segments
-// [0, M) are left unwritten). combos: n_combos packed words in host memory
-// (Params).
+// [0, M) are left unwritten).
 int tfhe_rotate_decompose_rows(const int32_t* acc, const int32_t* bara,
-                               int8_t* lhs, const int32_t* combos,
-                               int n_combos, int batch, int k1, int n, int l,
-                               int b, int m, int lhs_rows, int offset,
+                               int8_t* lhs, const StepSizes* sizes,
                                void* stream) {
   Params p;
-  cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
-                                combos, n_combos);
+  cudaError_t err = make_params(p, *sizes);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_rotate_decompose(acc, bara, lhs, p,
                                       static_cast<cudaStream_t>(stream));
 }
 
 // The whole rotation: 2 launches per step on `stream`, acc updated in place.
-// combos: n_combos packed words in host memory (Params). Returns the first
-// CUDA error (0 = none); does not synchronise.
+// Returns the first CUDA error (0 = none); does not synchronise.
 int tfhe_blind_rotate(int32_t* acc, const int8_t* key, const int32_t* bara_t,
-                      int8_t* lhs, const int32_t* combos, int n_combos,
-                      const int32_t* products, const int32_t* targets,
-                      const int32_t* items, int n_items, int stages,
-                      int cluster, int batch, int k1, int n, int l, int b,
-                      int m, int n_steps, int lhs_rows, int total_rows,
-                      int offset, void* stream) {
+                      int8_t* lhs, const StepSizes* sizes,
+                      const DotsArgs* tables, int n_steps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p;
-  cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
-                                combos, n_combos);
+  cudaError_t err = make_params(p, *sizes);
   if (err != cudaSuccess) return (int)err;
   DotsLaunch dots;
-  err = make_dots(dots, lhs, p.lhs_stride, key, total_rows * p.pt, k1,
-                  n_steps, products, targets, items, n_items, stages,
-                  cluster, batch, k1, n, m, 0, 0);
+  err = make_dots(dots, *tables, p, lhs, key, sizes->total_rows * p.pt, p.k1,
+                  n_steps);
   if (err != cudaSuccess) return (int)err;
   err = allow_dots_smem(dots);
   if (err != cudaSuccess) return (int)err;
   for (int s = 0; s < n_steps; ++s) {
-    err = launch_step(acc, dots, s, false, bara_t + (size_t)s * batch, lhs,
+    err = launch_step(acc, dots, s, false, bara_t + (size_t)s * p.batch, lhs,
                       p, st);
     if (err != cudaSuccess) return (int)err;
   }

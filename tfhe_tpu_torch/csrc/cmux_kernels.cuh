@@ -16,6 +16,18 @@
 
 #include "dots_sm90.cuh"
 
+// A rotation C entry's sizes and combo table, as ops/blind_rotate.py:
+// rotation_launch fills them (its ctypes mirror StepSizes): the batch, K,
+// N, the gadget l and b, M = N/T, the digit row's segments of P*T bytes
+// (lhs_rows), the key's rows of P*T bytes a step (total_rows), the
+// decomposition offset, and n_combos packed words (Params) in host memory,
+// which make_params copies into the launches' parameters. A parameter type
+// of the C entries, so outside the anonymous namespace.
+struct StepSizes {
+  int batch, k1, n, l, b, m, lhs_rows, total_rows, offset, n_combos;
+  const int32_t* combos;
+};
+
 namespace {
 
 constexpr int kT = 128;  // Toeplitz block size
@@ -292,7 +304,7 @@ rotate_decompose_kernel(const int32_t* __restrict__ acc,
 }
 
 // The dots launch of a step (dots_sm90.cuh): one block per (work item,
-// batch tile of kDotRows rows), in clusters of d.cluster blocks along the
+// batch tile of kDotRows rows), in clusters of d.t.cluster blocks along the
 // batch tile. The two kernels share one body and differ in where the key's
 // poly coordinate comes from: a single-key step's key holds every output
 // poly k, a multi-key step's operand one (K = 1).
@@ -329,7 +341,7 @@ inline cudaError_t allow_dots_smem(const DotsLaunch& d) {
                               (int)d.smem);
 }
 
-// The grid in clusters of (1, d.cluster, 1) blocks; at d.cluster = 1 the
+// The grid in clusters of (1, d.t.cluster, 1) blocks; at d.t.cluster = 1 the
 // launch carries no attribute, a plain launch.
 inline cudaError_t launch_dots(int32_t* acc, DotsLaunch& d, int step,
                                bool multi_key, cudaStream_t st) {
@@ -337,18 +349,18 @@ inline cudaError_t launch_dots(int32_t* acc, DotsLaunch& d, int step,
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = d.cluster;
+  attr[0].val.clusterDim.y = d.t.cluster;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(d.n_items, d.tiles);
+  cfg.gridDim = dim3(d.t.n_items, d.tiles);
   cfg.blockDim = dim3(kDotThreads, 1, 1);
   cfg.dynamicSmemBytes = d.smem;
   cfg.stream = st;
   cfg.attrs = attr;
-  cfg.numAttrs = d.cluster > 1 ? 1 : 0;
+  cfg.numAttrs = d.t.cluster > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, multi_key ? mk_unit_dots_kernel : leaf_dots_kernel, d.a_map,
-      d.b_map, acc, d.products, d.targets, d.items, d.p);
+      d.b_map, acc, d.t.products, d.t.targets, d.t.items, d.p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -382,54 +394,45 @@ inline cudaError_t launch_dots(int32_t* acc, DotsLaunch& d, int step,
 //   R[T - 1 - w .. T - 1 - w + 127], forward. A thread writes 16 bytes a
 //   store, funnel-shifted out of five aligned words; a warp writes four
 //   whole 128-byte lines.
-// Probe (timing only, never on a path; chip_smoke.py --rows-against):
-// 1 = the sums alone (their bytes reach shared memory, no line is stored),
-// 2 = the stores alone (a constant C), 3 = an empty block.
 constexpr int kExpandThreads = 128;
 
-template <bool KMajor, int Probe>
+template <bool KMajor>
 __global__ void __launch_bounds__(kExpandThreads)
 expand_kernel(const int8_t* __restrict__ limbs_step,
               const int32_t* __restrict__ entry_masks,
               int8_t* __restrict__ out, int p_rows, int k1, int n) {
   __shared__ __align__(16) uint32_t cw[2 * kT / 4 + 4];  // the limb's bytes
-  if constexpr (Probe == 3) return;
   const int limb = blockIdx.x & 3, k = blockIdx.x >> 2;
   const int pj = blockIdx.y, r = blockIdx.z;
   const int tid = threadIdx.x;
 
   if (tid < 2 * kT / 4) {
-    uint32_t word;
-    if constexpr (Probe == 2) {
-      word = 0x01020304u * (uint32_t)(tid + limb);
-    } else {
-      const uint32_t n2_mask = 2u * (uint32_t)n - 1u;
-      const size_t plane = (size_t)p_rows * k1 * 2 * n;  // a limb's plane
-      const int8_t* src = limbs_step + ((size_t)pj * k1 + k) * 2 * n;
-      const uint32_t mask = (uint32_t)entry_masks[r];
-      uint32_t sum[4] = {0u, 0u, 0u, 0u};
-      for (uint32_t bits = mask; bits; bits &= bits - 1) {
-        const int d = __ffs(bits) - 1;
-        const uint32_t idx = ((uint32_t)(d * kT - kT + 4 * tid)) & n2_mask;
+    const uint32_t n2_mask = 2u * (uint32_t)n - 1u;
+    const size_t plane = (size_t)p_rows * k1 * 2 * n;  // a limb's plane
+    const int8_t* src = limbs_step + ((size_t)pj * k1 + k) * 2 * n;
+    const uint32_t mask = (uint32_t)entry_masks[r];
+    uint32_t sum[4] = {0u, 0u, 0u, 0u};
+    for (uint32_t bits = mask; bits; bits &= bits - 1) {
+      const int d = __ffs(bits) - 1;
+      const uint32_t idx = ((uint32_t)(d * kT - kT + 4 * tid)) & n2_mask;
 #pragma unroll
-        for (int pl = 0; pl < 4; ++pl) {
-          const uint32_t x =
-              *reinterpret_cast<const uint32_t*>(src + pl * plane + idx);
+      for (int pl = 0; pl < 4; ++pl) {
+        const uint32_t x =
+            *reinterpret_cast<const uint32_t*>(src + pl * plane + idx);
 #pragma unroll
-          for (int e = 0; e < 4; ++e)  // sign-extended bytes, mod 2^32
-            sum[e] += (uint32_t)(int32_t)(int8_t)(x >> (8 * e)) << (8 * pl);
-        }
+        for (int e = 0; e < 4; ++e)  // sign-extended bytes, mod 2^32
+          sum[e] += (uint32_t)(int32_t)(int8_t)(x >> (8 * e)) << (8 * pl);
       }
-      word = 0u;
+    }
+    uint32_t word = 0u;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        uint32_t cur = sum[e];
-        for (int x = 0; x < limb; ++x) {  // drop the lower balanced limbs
-          const int32_t lo = (int32_t)((cur & 255u) ^ 128u) - 128;
-          cur = (uint32_t)((int32_t)(cur - (uint32_t)lo) >> 8);
-        }
-        word |= (cur & 255u) << (8 * e);  // the balanced byte's bits
+    for (int e = 0; e < 4; ++e) {
+      uint32_t cur = sum[e];
+      for (int x = 0; x < limb; ++x) {  // drop the lower balanced limbs
+        const int32_t lo = (int32_t)((cur & 255u) ^ 128u) - 128;
+        cur = (uint32_t)((int32_t)(cur - (uint32_t)lo) >> 8);
       }
+      word |= (cur & 255u) << (8 * e);  // the balanced byte's bits
     }
     if (KMajor)
       cw[2 * kT / 4 - 1 - tid] = __byte_perm(word, 0u, 0x0123);
@@ -439,10 +442,6 @@ expand_kernel(const int8_t* __restrict__ limbs_step,
     cw[tid] = 0u;  // read (shifted out) by the last line's fifth word
   }
   __syncthreads();
-  if constexpr (Probe == 1) {
-    if (cw[tid & 63] == 0x9E3779B9u) out[tid] = 1;  // keeps the sums live
-    return;
-  }
 
   const size_t rows = (size_t)gridDim.z * p_rows * kT;  // R*P*T
   const size_t row0 = ((size_t)r * p_rows + pj) * kT;   // the unit's first
@@ -468,28 +467,18 @@ expand_kernel(const int8_t* __restrict__ limbs_step,
   }
 }
 
-template <int Probe>
-inline cudaError_t launch_expand_probe(const int8_t* limbs_step,
-                                       const int32_t* entry_masks,
-                                       int8_t* out, int total_rows,
-                                       int p_rows, int k1, int n, bool kmajor,
-                                       cudaStream_t st) {
-  const dim3 grid(4 * k1, p_rows, total_rows);
-  if (kmajor)
-    expand_kernel<true, Probe><<<grid, kExpandThreads, 0, st>>>(
-        limbs_step, entry_masks, out, p_rows, k1, n);
-  else
-    expand_kernel<false, Probe><<<grid, kExpandThreads, 0, st>>>(
-        limbs_step, entry_masks, out, p_rows, k1, n);
-  return cudaGetLastError();
-}
-
 inline cudaError_t launch_expand(const int8_t* limbs_step,
                                  const int32_t* entry_masks, int8_t* out,
                                  int total_rows, int p_rows, int k1, int n,
                                  bool kmajor, cudaStream_t st) {
-  return launch_expand_probe<0>(limbs_step, entry_masks, out, total_rows,
-                                p_rows, k1, n, kmajor, st);
+  const dim3 grid(4 * k1, p_rows, total_rows);
+  if (kmajor)
+    expand_kernel<true><<<grid, kExpandThreads, 0, st>>>(
+        limbs_step, entry_masks, out, p_rows, k1, n);
+  else
+    expand_kernel<false><<<grid, kExpandThreads, 0, st>>>(
+        limbs_step, entry_masks, out, p_rows, k1, n);
+  return cudaGetLastError();
 }
 
 // The rotate/decompose launches' shape: one block per ciphertext row, one
@@ -552,27 +541,52 @@ inline cudaError_t launch_step(int32_t* acc, DotsLaunch& dots, int step,
   return launch_dots(acc, dots, step, multi_key, st);
 }
 
-// The launches' parameters; combos (host memory, n_combos packed words, see
-// Params) are copied in. Returns cudaErrorInvalidValue for more than
-// kMaxCombos combos.
-inline cudaError_t make_params(Params& p, int batch, int k1, int n, int l,
-                               int b, int m, int lhs_rows, int offset,
-                               const int32_t* combos = nullptr,
-                               int n_combos = 0) {
-  if (n_combos < 0 || n_combos > kMaxCombos) return cudaErrorInvalidValue;
-  p.batch = batch;
-  p.k1 = k1;
-  p.n = n;
-  p.l = l;
-  p.b = b;
-  p.m = m;
-  p.pt = k1 * l * kT;
-  p.lhs_stride = lhs_rows * p.pt;
-  p.cols = k1 * 4 * kT;
-  p.offset = offset;
-  p.n_combos = n_combos;
+// The launches' parameters from an entry's sizes; the combos are copied
+// in. Returns cudaErrorInvalidValue for more than kMaxCombos combos.
+inline cudaError_t make_params(Params& p, const StepSizes& s) {
+  if (s.n_combos < 0 || s.n_combos > kMaxCombos) return cudaErrorInvalidValue;
+  p.batch = s.batch;
+  p.k1 = s.k1;
+  p.n = s.n;
+  p.l = s.l;
+  p.b = s.b;
+  p.m = s.m;
+  p.pt = s.k1 * s.l * kT;
+  p.lhs_stride = s.lhs_rows * p.pt;
+  p.cols = s.k1 * 4 * kT;
+  p.offset = s.offset;
+  p.n_combos = s.n_combos;
   for (int c = 0; c < kMaxCombos; ++c)
-    p.combos[c] = c < n_combos ? (uint32_t)combos[c] : 0u;
+    p.combos[c] = c < s.n_combos ? (uint32_t)s.combos[c] : 0u;
+  return cudaSuccess;
+}
+
+// The dots launches of an entry: its tables t, the digit rows lhs
+// (p.lhs_stride bytes a row) against `key`, n_steps steps of key_rows
+// contraction rows for key_k1 output polys each; a product's pieces are
+// a_stride and b_stride bytes apart (0: one piece).
+inline cudaError_t make_dots(DotsLaunch& d, const DotsArgs& t,
+                             const Params& p, const int8_t* lhs,
+                             const int8_t* key, int key_rows, int key_k1,
+                             int n_steps, int a_stride = 0,
+                             int b_stride = 0) {
+  d.tiles = (p.batch + kDotRows - 1) / kDotRows;
+  if ((t.cluster != 1 && t.cluster != 2) || d.tiles % t.cluster)
+    return cudaErrorInvalidValue;
+  d.t = t;
+  cudaError_t err = make_lhs_map(&d.a_map, lhs, p.batch, p.lhs_stride);
+  if (err != cudaSuccess) return err;
+  err = make_key_map(&d.b_map, key, key_rows, key_k1, n_steps);
+  if (err != cudaSuccess) return err;
+  d.p.batch = p.batch;
+  d.p.k1 = p.k1;
+  d.p.n = p.n;
+  d.p.m = p.m;
+  d.p.a_stride = a_stride;
+  d.p.b_stride = b_stride;
+  d.p.stages = t.stages;
+  d.p.step = 0;
+  d.smem = dots_smem_bytes(t.stages, p.m);
   return cudaSuccess;
 }
 

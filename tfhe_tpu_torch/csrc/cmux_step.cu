@@ -98,30 +98,29 @@ struct RotateDecomposeDense {
 
 extern "C" {
 
-// acc int32[B, K, N], bara_step int32[B] -> digits int8[B, S, M*P*T].
+// acc int32[B, K, N], bara_step int32[B] -> digits int8[B, S, M*P*T]: the
+// digit row is the S limbs' M blocks, sizes->lhs_rows = S*M segments.
 int tfhe_rotate_decompose(const int32_t* acc, const int32_t* bara_step,
-                          int8_t* digits, int batch, int k1, int n, int l,
-                          int b, int m, int s_limbs, int offset,
+                          int8_t* digits, const StepSizes* sizes,
                           void* stream) {
   Params p;
-  make_params(p, batch, k1, n, l, b, m, s_limbs * m, offset);
+  cudaError_t err = make_params(p, *sizes);
+  if (err != cudaSuccess) return (int)err;
   return (int)launch_by_m<RotateDecomposeDense>(
-      p, acc, bara_step, digits, s_limbs, static_cast<cudaStream_t>(stream));
+      p, acc, bara_step, digits, sizes->lhs_rows / sizes->m,
+      static_cast<cudaStream_t>(stream));
 }
 
 // acc += recombine(digits (x) e_step), in place. digits int8[B, S, M*P*T],
 // e_step int8[K, 4, T, 2M*P*T] (K-major), the dense product table.
 int tfhe_cmux_matmul(int32_t* acc, const int8_t* digits, const int8_t* e_step,
-                     const int32_t* products, const int32_t* targets,
-                     const int32_t* items, int n_items, int stages,
-                     int cluster, int batch, int k1, int n, int l, int m,
-                     int s_limbs, void* stream) {
-  const int pt = k1 * l * kT;
+                     const StepSizes* sizes, const DotsArgs* tables,
+                     void* stream) {
+  Params p;
+  cudaError_t err = make_params(p, *sizes);
+  if (err != cudaSuccess) return (int)err;
   DotsLaunch dots;
-  cudaError_t err = make_dots(dots, digits, s_limbs * m * pt, e_step,
-                              2 * m * pt, k1, 1, products, targets, items,
-                              n_items, stages, cluster, batch, k1, n, m, 0,
-                              0);
+  err = make_dots(dots, *tables, p, digits, e_step, 2 * p.m * p.pt, p.k1, 1);
   if (err != cudaSuccess) return (int)err;
   err = allow_dots_smem(dots);
   if (err != cudaSuccess) return (int)err;

@@ -50,59 +50,30 @@ int tfhe_expand_step(const int8_t* limbs_step, const int32_t* entry_masks,
                             static_cast<cudaStream_t>(stream));
 }
 
-// The expansion's timing probes (expand_kernel's Probe: 1 the sums alone,
-// 2 the stores of a constant, 3 an empty grid); `out` holds nothing
-// meaningful after them. No path calls this.
-int tfhe_expand_probe(const int8_t* limbs_step, const int32_t* entry_masks,
-                      int8_t* out, int total_rows, int p_rows, int k1, int n,
-                      int kmajor, int probe, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool km = kmajor != 0;
-  switch (probe) {
-    case 1: return (int)launch_expand_probe<1>(limbs_step, entry_masks, out,
-                                               total_rows, p_rows, k1, n, km,
-                                               st);
-    case 2: return (int)launch_expand_probe<2>(limbs_step, entry_masks, out,
-                                               total_rows, p_rows, k1, n, km,
-                                               st);
-    case 3: return (int)launch_expand_probe<3>(limbs_step, entry_masks, out,
-                                               total_rows, p_rows, k1, n, km,
-                                               st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 // The whole rotation from the compact key: 3 launches per step on `stream`,
 // acc updated in place, `scratch` (R*P*T * K*4*T bytes) rewritten per step.
 int tfhe_blind_rotate_compact(int32_t* acc, const int8_t* limbs,
                               const int32_t* bara_t, int8_t* lhs,
                               int8_t* scratch, const int32_t* entry_masks,
-                              const int32_t* combos, int n_combos,
-                              const int32_t* products,
-                              const int32_t* targets, const int32_t* items,
-                              int n_items, int stages, int cluster,
-                              int batch, int k1, int n, int l, int b, int m,
-                              int n_steps, int lhs_rows, int total_rows,
-                              int offset, void* stream) {
+                              const StepSizes* sizes, const DotsArgs* tables,
+                              int n_steps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p;
-  cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
-                                combos, n_combos);
+  cudaError_t err = make_params(p, *sizes);
   if (err != cudaSuccess) return (int)err;
   DotsLaunch dots;
-  err = make_dots(dots, lhs, p.lhs_stride, scratch, total_rows * p.pt, k1, 1,
-                  products, targets, items, n_items, stages, cluster, batch,
-                  k1, n, m, 0, 0);
+  err = make_dots(dots, *tables, p, lhs, scratch, sizes->total_rows * p.pt,
+                  p.k1, 1);
   if (err != cudaSuccess) return (int)err;
   err = allow_dots_smem(dots);
   if (err != cudaSuccess) return (int)err;
-  const int p_rows = k1 * l;
-  const size_t limbs_step = (size_t)4 * p_rows * k1 * 2 * n;
+  const int p_rows = p.k1 * p.l;
+  const size_t limbs_step = (size_t)4 * p_rows * p.k1 * 2 * p.n;
   for (int s = 0; s < n_steps; ++s) {
     err = launch_expand(limbs + (size_t)s * limbs_step, entry_masks, scratch,
-                        total_rows, p_rows, k1, n, true, st);
+                        sizes->total_rows, p_rows, p.k1, p.n, true, st);
     if (err != cudaSuccess) return (int)err;
-    err = launch_step(acc, dots, 0, false, bara_t + (size_t)s * batch, lhs,
+    err = launch_step(acc, dots, 0, false, bara_t + (size_t)s * p.batch, lhs,
                       p, st);
     if (err != cudaSuccess) return (int)err;
   }

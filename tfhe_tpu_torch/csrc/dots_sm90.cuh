@@ -79,6 +79,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The dots tables of a C entry's launches, as ops/dots.py:dots_args fills
+// them (its ctypes mirror dots.DotsArgs): the product and target rows and
+// the work items (n_items rows) on the device, the ring's slots, and the
+// blocks of a cluster along the batch tile (1 or 2). A parameter type of
+// the C entries, so outside the anonymous namespace.
+struct DotsArgs {
+  const int32_t *products, *targets, *items;
+  int n_items, stages, cluster;
+};
+
 namespace {
 
 constexpr int kDotRows = 64;               // batch rows per block: wgmma M
@@ -480,41 +490,9 @@ inline size_t dots_smem_bytes(int stages, int m) {
 struct DotsLaunch {
   CUtensorMap a_map, b_map;
   DotsParams p;
-  const int32_t *products, *targets, *items;
-  int n_items, tiles;
-  int cluster;  // blocks of a cluster along the batch tile: 1 or 2
+  DotsArgs t;
+  int tiles;
   size_t smem;
 };
-
-inline cudaError_t make_dots(DotsLaunch& d, const int8_t* lhs, int lhs_stride,
-                             const int8_t* key, int rows, int key_k1,
-                             int n_steps, const int32_t* products,
-                             const int32_t* targets, const int32_t* items,
-                             int n_items, int stages, int cluster,
-                             int batch, int k1, int n, int m, int a_stride,
-                             int b_stride) {
-  d.tiles = (batch + kDotRows - 1) / kDotRows;
-  if ((cluster != 1 && cluster != 2) || d.tiles % cluster)
-    return cudaErrorInvalidValue;
-  d.cluster = cluster;
-  cudaError_t err = make_lhs_map(&d.a_map, lhs, batch, lhs_stride);
-  if (err != cudaSuccess) return err;
-  err = make_key_map(&d.b_map, key, rows, key_k1, n_steps);
-  if (err != cudaSuccess) return err;
-  d.p.batch = batch;
-  d.p.k1 = k1;
-  d.p.n = n;
-  d.p.m = m;
-  d.p.a_stride = a_stride;
-  d.p.b_stride = b_stride;
-  d.p.stages = stages;
-  d.p.step = 0;
-  d.products = products;
-  d.targets = targets;
-  d.items = items;
-  d.n_items = n_items;
-  d.smem = dots_smem_bytes(stages, m);
-  return cudaSuccess;
-}
 
 }  // namespace

@@ -107,7 +107,6 @@ struct FusedUnits {
   const int32_t* items;  // one row per column tile: (k*4 + wt, 0, n, 0)
   const int* ready;      // per batch tile, the groups formed so far
   int n_cols, first, stride, total, batch;
-  bool wait_ready;
   __device__ int count() const {
     return first < total ? (total - first + stride - 1) / stride : 0;
   }
@@ -118,7 +117,6 @@ struct FusedUnits {
     return (first + u * stride) / n_cols * kDotRows;
   }
   __device__ void wait(int u) const {
-    if (!wait_ready) return;
     const int tile = (first + u * stride) / n_cols;
     const int rows = min(kDotRows, batch - tile * kDotRows);
     const int groups = (rows + kGroupRows - 1) / kGroupRows;
@@ -128,9 +126,7 @@ struct FusedUnits {
 };
 
 // One launch of G resident blocks (G = gridDim.x). stage_rows is the
-// number of rows phase 1 stages at a time (at least 1). probe (timing
-// only, never on a path; chip_smoke.py --rows-against): 0 = the step, 1 =
-// phase 1 alone, 2 = phase 2 alone (on whatever lhs holds).
+// number of rows phase 1 stages at a time (at least 1).
 template <int M, bool Wide>
 __global__ void
 __launch_bounds__(fused_threads<M>(), fused_blocks_per_sm<M>())
@@ -142,11 +138,11 @@ fused_step_kernel(const __grid_constant__ CUtensorMap a_map,
                   const int32_t* __restrict__ products,
                   const int32_t* __restrict__ targets,
                   const int32_t* __restrict__ items, int n_cols,
-                  int stage_rows, int* ready, int probe,
+                  int stage_rows, int* ready,
                   const __grid_constant__ Params p, const DotsParams dp) {
   extern __shared__ __align__(1024) uint4 fused_smem[];
   const int row16 = p.k1 * (M * kT / 4);
-  const int groups = probe == 2 ? 0 : (p.batch + kGroupRows - 1) / kGroupRows;
+  const int groups = (p.batch + kGroupRows - 1) / kGroupRows;
 
   // phase 1: this block's groups of rows, as digit rows in lhs
   for (int g = blockIdx.x; g < groups; g += gridDim.x) {
@@ -167,13 +163,11 @@ fused_step_kernel(const __grid_constant__ CUtensorMap a_map,
     __syncthreads();
     if (threadIdx.x == 0) atomicAdd(ready + g / kTileGroups, 1);
   }
-  if (probe == 1) return;
 
   // phase 2: this block's units
   const int tiles = (p.batch + kDotRows - 1) / kDotRows;
   const FusedUnits units = {items, ready, n_cols, (int)blockIdx.x,
-                            (int)gridDim.x, tiles * n_cols, p.batch,
-                            probe == 0};
+                            (int)gridDim.x, tiles * n_cols, p.batch};
   dots_body<true, true>(&a_map, &b_map, acc, out, products, targets, units,
                         dp);
 }
@@ -183,8 +177,7 @@ struct FusedArgs {
   int8_t* lhs;
   int32_t* out;
   int* ready;
-  int n_cols, stage_rows, probe;
-  int* max_blocks;  // if not null: the resident blocks, and no launch
+  int n_cols, stage_rows;
 };
 
 template <int M>
@@ -206,10 +199,6 @@ struct FusedStep {
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    if (a.max_blocks) {
-      *a.max_blocks = per_sm * sms;
-      return cudaSuccess;
-    }
     // as many blocks as phase 1's groups or phase 2's units need, at most
     // what the card holds at once
     const int tiles = (p.batch + kDotRows - 1) / kDotRows;
@@ -231,36 +220,13 @@ struct FusedStep {
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, kernel, d.a_map, d.b_map, a.acc, a.bara,
-                             a.lhs, a.out, d.products, d.targets, d.items,
-                             a.n_cols, a.stage_rows, a.ready, a.probe, p,
+                             a.lhs, a.out, d.t.products, d.t.targets,
+                             d.t.items, a.n_cols, a.stage_rows, a.ready, p,
                              d.p);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
   }
 };
-
-// The step's launch; see tfhe_cmux_step_karatsuba.
-int fused_step(const int32_t* acc, const int8_t* key_step, const int32_t* bara,
-               int32_t* out, int8_t* lhs, int* ready, const int32_t* combos,
-               int n_combos, const int32_t* products, const int32_t* targets,
-               const int32_t* items, int n_items, int stages, int stage_rows,
-               int batch, int k1, int n, int l, int b, int m, int lhs_rows,
-               int total_rows, int offset, int probe, int* max_blocks,
-               cudaStream_t st) {
-  Params p;
-  cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
-                                combos, n_combos);
-  if (err != cudaSuccess) return (int)err;
-  if (n_items != k1 * 4 || stage_rows < 1) return (int)cudaErrorInvalidValue;
-  DotsLaunch dots;
-  err = make_dots(dots, lhs, p.lhs_stride, key_step, total_rows * p.pt, k1, 1,
-                  products, targets, items, n_items, stages, 1, batch, k1, n,
-                  m, 0, 0);
-  if (err != cudaSuccess) return (int)err;
-  const FusedArgs a = {acc, bara, lhs, out, ready, n_items, stage_rows,
-                       probe, max_blocks};
-  return (int)launch_by_m<FusedStep>(p, dots, a, st);
-}
 
 }  // namespace
 
@@ -269,39 +235,28 @@ extern "C" {
 // One fused step in one launch on `stream` (after a memset of `ready`):
 // out = acc + key_step (x) [(X^bara - 1) * acc], key_step K-major
 // int8[K, 4, T, total_rows*P*T]. Scratch: lhs, batch x lhs_rows*P*T bytes;
-// ready, int32[ceil(batch / 64)]. combos: n_combos packed words in host
-// memory (Params). items: n_items rows (k*4 + wt, 0, n_products, 0), one
-// per column tile, n_items = K*4. stage_rows: the rows phase 1 stages at a
-// time. Returns the first CUDA error (0 = none); does not synchronise.
+// ready, int32[ceil(batch / 64)]. tables: the items are n_items = K*4 rows
+// (k*4 + wt, 0, n_products, 0), one per column tile, in plain launches
+// (cluster 1). stage_rows: the rows phase 1 stages at a time. Returns the
+// first CUDA error (0 = none); does not synchronise.
 int tfhe_cmux_step_karatsuba(const int32_t* acc, const int8_t* key_step,
                              const int32_t* bara, int32_t* out, int8_t* lhs,
-                             int* ready, const int32_t* combos, int n_combos,
-                             const int32_t* products, const int32_t* targets,
-                             const int32_t* items, int n_items, int stages,
-                             int stage_rows, int batch, int k1, int n, int l,
-                             int b, int m, int lhs_rows, int total_rows,
-                             int offset, void* stream) {
-  return fused_step(acc, key_step, bara, out, lhs, ready, combos, n_combos,
-                    products, targets, items, n_items, stages, stage_rows,
-                    batch, k1, n, l, b, m, lhs_rows, total_rows, offset, 0,
-                    nullptr, static_cast<cudaStream_t>(stream));
-}
-
-// The same launch as a timing probe (fused_step_kernel's probe; out and
-// lhs hold nothing meaningful after 1 and 2), or with max_blocks not null
-// no launch: *max_blocks = the blocks the card holds at once. No path
-// calls this.
-int tfhe_cmux_step_karatsuba_probe(
-    const int32_t* acc, const int8_t* key_step, const int32_t* bara,
-    int32_t* out, int8_t* lhs, int* ready, const int32_t* combos,
-    int n_combos, const int32_t* products, const int32_t* targets,
-    const int32_t* items, int n_items, int stages, int stage_rows, int batch,
-    int k1, int n, int l, int b, int m, int lhs_rows, int total_rows,
-    int offset, int probe, int* max_blocks, void* stream) {
-  return fused_step(acc, key_step, bara, out, lhs, ready, combos, n_combos,
-                    products, targets, items, n_items, stages, stage_rows,
-                    batch, k1, n, l, b, m, lhs_rows, total_rows, offset,
-                    probe, max_blocks, static_cast<cudaStream_t>(stream));
+                             int* ready, const StepSizes* sizes,
+                             const DotsArgs* tables, int stage_rows,
+                             void* stream) {
+  Params p;
+  cudaError_t err = make_params(p, *sizes);
+  if (err != cudaSuccess) return (int)err;
+  if (tables->n_items != p.k1 * 4 || stage_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  DotsLaunch dots;
+  err = make_dots(dots, *tables, p, lhs, key_step, sizes->total_rows * p.pt,
+                  p.k1, 1);
+  if (err != cudaSuccess) return (int)err;
+  const FusedArgs a = {acc, bara, lhs, out, ready, tables->n_items,
+                       stage_rows};
+  return (int)launch_by_m<FusedStep>(p, dots, a,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

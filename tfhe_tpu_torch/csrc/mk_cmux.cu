@@ -56,16 +56,14 @@ namespace {
 // The unit dots of every step of one call: the digit rows `lhs`, an
 // operand int8[n_steps, 4, T, R*NZ*l*T] (K = 1), pieces strided by P*T in
 // the digits and NZ*l*T in the operand.
-cudaError_t make_mk_dots(DotsLaunch& dots, const Params& p, const int8_t* lhs,
+cudaError_t make_mk_dots(DotsLaunch& dots, const DotsArgs& tables,
+                         const Params& p, const int8_t* lhs,
                          const int8_t* operand, int n_steps, int total_rows,
-                         int nzn, const int32_t* products,
-                         const int32_t* targets, const int32_t* items,
-                         int n_items, int stages, int cluster) {
+                         int nzn) {
   const int lt = p.l * kT;
-  cudaError_t err = make_dots(dots, lhs, p.lhs_stride, operand,
-                              total_rows * nzn * lt, 1, n_steps, products,
-                              targets, items, n_items, stages, cluster,
-                              p.batch, p.k1, p.n, p.m, p.pt, nzn * lt);
+  cudaError_t err = make_dots(dots, tables, p, lhs, operand,
+                              total_rows * nzn * lt, 1, n_steps, p.pt,
+                              nzn * lt);
   if (err != cudaSuccess) return err;
   return allow_dots_smem(dots);
 }
@@ -77,20 +75,16 @@ extern "C" {
 // One step against e_step int8[4, T, R*NZ*l*T]. acc is updated in place; 2
 // launches on `stream`.
 int tfhe_mk_cmux_step(int32_t* acc, const int8_t* e_step,
-                      const int32_t* bara, int8_t* lhs, const int32_t* combos,
-                      int n_combos, const int32_t* products,
-                      const int32_t* targets, const int32_t* items,
-                      int n_items, int stages, int cluster, int batch,
-                      int k1, int n, int l, int b, int m, int lhs_rows,
-                      int total_rows, int nzn, int offset, void* stream) {
+                      const int32_t* bara, int8_t* lhs,
+                      const StepSizes* sizes, const DotsArgs* tables, int nzn,
+                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p;
-  cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
-                                combos, n_combos);
+  cudaError_t err = make_params(p, *sizes);
   if (err != cudaSuccess) return (int)err;
   DotsLaunch dots;
-  err = make_mk_dots(dots, p, lhs, e_step, 1, total_rows, nzn, products,
-                     targets, items, n_items, stages, cluster);
+  err = make_mk_dots(dots, *tables, p, lhs, e_step, 1, sizes->total_rows,
+                     nzn);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_step(acc, dots, 0, true, bara, lhs, p, st);
 }
@@ -99,24 +93,19 @@ int tfhe_mk_cmux_step(int32_t* acc, const int8_t* e_step,
 // and bara_t int32[n_steps, B]: 2 launches per step on `stream`.
 int tfhe_mk_blind_rotate_chunk(int32_t* acc, const int8_t* e_chunk,
                                const int32_t* bara_t, int8_t* lhs,
-                               const int32_t* combos, int n_combos,
-                               const int32_t* products,
-                               const int32_t* targets, const int32_t* items,
-                               int n_items, int stages, int cluster,
-                               int batch, int k1, int n, int l, int b, int m,
-                               int n_steps, int lhs_rows, int total_rows,
-                               int nzn, int offset, void* stream) {
+                               const StepSizes* sizes,
+                               const DotsArgs* tables, int n_steps, int nzn,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p;
-  cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
-                                combos, n_combos);
+  cudaError_t err = make_params(p, *sizes);
   if (err != cudaSuccess) return (int)err;
   DotsLaunch dots;
-  err = make_mk_dots(dots, p, lhs, e_chunk, n_steps, total_rows, nzn,
-                     products, targets, items, n_items, stages, cluster);
+  err = make_mk_dots(dots, *tables, p, lhs, e_chunk, n_steps,
+                     sizes->total_rows, nzn);
   if (err != cudaSuccess) return (int)err;
   for (int s = 0; s < n_steps; ++s) {
-    err = launch_step(acc, dots, s, true, bara_t + (size_t)s * batch, lhs,
+    err = launch_step(acc, dots, s, true, bara_t + (size_t)s * p.batch, lhs,
                       p, st);
     if (err != cudaSuccess) return (int)err;
   }
@@ -130,29 +119,24 @@ int tfhe_mk_blind_rotate_chunk(int32_t* acc, const int8_t* e_chunk,
 int tfhe_mk_blind_rotate_compact(int32_t* acc, const int8_t* limbs,
                                  const int32_t* bara_t, int8_t* lhs,
                                  int8_t* scratch, const int32_t* entry_masks,
-                                 const int32_t* combos, int n_combos,
-                                 const int32_t* products,
-                                 const int32_t* targets, const int32_t* items,
-                                 int n_items, int stages, int cluster,
-                                 int batch, int k1, int n, int l, int b,
-                                 int m, int n_steps, int lhs_rows,
-                                 int total_rows, int nzn, int offset,
+                                 const StepSizes* sizes,
+                                 const DotsArgs* tables, int n_steps, int nzn,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p;
-  cudaError_t err = make_params(p, batch, k1, n, l, b, m, lhs_rows, offset,
-                                combos, n_combos);
+  cudaError_t err = make_params(p, *sizes);
   if (err != cudaSuccess) return (int)err;
   DotsLaunch dots;
-  err = make_mk_dots(dots, p, lhs, scratch, 1, total_rows, nzn, products,
-                     targets, items, n_items, stages, cluster);
+  err = make_mk_dots(dots, *tables, p, lhs, scratch, 1, sizes->total_rows,
+                     nzn);
   if (err != cudaSuccess) return (int)err;
-  const size_t limbs_step = (size_t)4 * nzn * l * 2 * n;  // x 4000 steps > 2^31
+  // x 4000 steps > 2^31
+  const size_t limbs_step = (size_t)4 * nzn * p.l * 2 * p.n;
   for (int s = 0; s < n_steps; ++s) {
     err = launch_expand(limbs + (size_t)s * limbs_step, entry_masks, scratch,
-                        total_rows, nzn * l, 1, n, true, st);
+                        sizes->total_rows, nzn * p.l, 1, p.n, true, st);
     if (err != cudaSuccess) return (int)err;
-    err = launch_step(acc, dots, 0, true, bara_t + (size_t)s * batch, lhs,
+    err = launch_step(acc, dots, 0, true, bara_t + (size_t)s * p.batch, lhs,
                       p, st);
     if (err != cudaSuccess) return (int)err;
   }

@@ -18,7 +18,7 @@ from .instrument import spanned
 from .lwe import LweSample
 from .noise import keyswitch_var
 from .numeric import dtot32, rand_gaussian_float, rand_uniform_torus32
-from .ops.conv import _round_up, i8_matmul, split_torus_limbs
+from .ops.conv import _round_up, i8_matmul, recombine_limbs, split_torus_limbs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,15 +133,11 @@ def keyswitch(ks: KeyswitchKey, sample: LweSample) -> LweSample:
     in a `tfhe.keyswitch` span."""
     l, b = ks.decomp_length, ks.log2_base
     base = 1 << b
-    cols_p = ks.table_limbs.shape[-1] // 4
     batch_shape = sample.b.shape
 
     onehot = keyswitch_onehot(sample.a, l, b).reshape(-1, l * base * ks.n_in)
-    prods = i8_matmul(onehot, ks.table_limbs).reshape(-1, 4, cols_p)
-    acc = prods[:, 0].clone()
-    for limb in range(1, 4):
-        acc += prods[:, limb] << (8 * limb)
-    acc = acc.reshape(batch_shape + (cols_p,))
+    acc = recombine_limbs(i8_matmul(onehot, ks.table_limbs))
+    acc = acc.reshape(batch_shape + acc.shape[-1:])
 
     a_out = -acc[..., :ks.n_out]
     b_out = sample.b - acc[..., ks.n_out]

@@ -359,19 +359,12 @@ def mk_keyswitch(ks_keys, sample: MKLweSample) -> MKLweSample:
                and (k.decomp_length, k.log2_base) == (l, b) for k in ks_keys):
         raise ValueError("party keyswitch geometries differ")
 
-    cols_p = ks0.table_limbs.shape[-1] // 4
     batch_shape = tuple(sample.b.shape)
     onehot = keyswitch_onehot(sample.a, l, b)  # [..., parties, R] int8
     oh = onehot.reshape(-1, parties, onehot.shape[-1])
-    accs = []
-    for party, key in enumerate(ks_keys):
-        prods = conv.i8_matmul(oh[:, party], key.table_limbs)
-        prods = prods.reshape(-1, 4, cols_p)
-        acc = prods[:, 0].clone()
-        for limb in range(1, 4):
-            acc += prods[:, limb] << (8 * limb)
-        accs.append(acc)
-    acc = torch.stack(accs)  # [parties, B, C]
+    acc = torch.stack([
+        conv.recombine_limbs(conv.i8_matmul(oh[:, party], key.table_limbs))
+        for party, key in enumerate(ks_keys)])  # [parties, B, C]
     a_out = torch.movedim(-acc[..., :ks0.n_out], 0, 1).reshape(
         batch_shape + (parties, ks0.n_out))
     b_out = sample.b - torch.sum(acc[..., ks0.n_out], dim=0,

@@ -92,50 +92,39 @@ def build() -> Path:
 
 @cached_build("kernel_library")
 def load() -> ctypes.CDLL:
-    """Build if needed, then load the library with its C signatures."""
+    """Build if needed, then load the library with its C signatures. The
+    rotation entries take a step's sizes and the dots' tables as the two
+    structs `blind_rotate.StepSizes` and `dots.DotsArgs` (by pointer; ctypes
+    refuses any other type there)."""
+    from .blind_rotate import StepSizes
+    from .dots import DotsArgs
+
     lib = ctypes.CDLL(str(build()))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    # products targets items, n_items stages cluster
-    dots = [vp, vp, vp, i32, i32, i32]
-    lib.tfhe_blind_rotate.argtypes = [
-        vp, vp, vp, vp, vp, i32,  # acc key bara lhs combos n_combos
-        *dots, *[i32] * 10, vp]  # sizes, stream
-    lib.tfhe_blind_rotate.restype = i32
-    lib.tfhe_expand_step.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
-                                     vp]
-    lib.tfhe_expand_step.restype = i32
-    lib.tfhe_blind_rotate_compact.argtypes = [
-        vp, vp, vp, vp, vp, vp,  # acc limbs bara lhs scratch entry_masks
-        vp, i32, *dots, *[i32] * 10, vp]  # combos n_combos, sizes, stream
-    lib.tfhe_blind_rotate_compact.restype = i32
-    lib.tfhe_rotate_decompose_rows.argtypes = [
-        vp, vp, vp, vp, *[i32] * 9, vp]  # acc bara lhs combos, sizes
-    lib.tfhe_rotate_decompose_rows.restype = i32
-    lib.tfhe_rotate_decompose.argtypes = [
-        vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp]
-    lib.tfhe_rotate_decompose.restype = i32
-    lib.tfhe_cmux_matmul.argtypes = [
-        vp, vp, vp, *dots, *[i32] * 6, vp]  # acc digits e_step, sizes
-    lib.tfhe_cmux_matmul.restype = i32
-    mk_head = [vp, vp, vp, vp]  # acc operand bara lhs
-    mk_tables = [vp, i32, *dots]  # combos n_combos, the dots tables
-    lib.tfhe_mk_cmux_step.argtypes = mk_head + mk_tables + [i32] * 10 + [vp]
-    lib.tfhe_mk_cmux_step.restype = i32
-    lib.tfhe_mk_blind_rotate_chunk.argtypes = (
-        mk_head + mk_tables + [i32] * 11 + [vp])
-    lib.tfhe_mk_blind_rotate_chunk.restype = i32
-    lib.tfhe_mk_blind_rotate_compact.argtypes = (
-        mk_head + [vp, vp] + mk_tables + [i32] * 11 + [vp])  # + scratch masks
-    lib.tfhe_mk_blind_rotate_compact.restype = i32
-    lib.tfhe_cmux_step_karatsuba.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, i32,  # acc key bara out lhs ready combos n
-        vp, vp, vp, *[i32] * 12, vp]  # products targets items, sizes, stream
-    lib.tfhe_cmux_step_karatsuba_probe.argtypes = [
-        *lib.tfhe_cmux_step_karatsuba.argtypes[:-1], i32, vp, vp]
-    lib.tfhe_cmux_step_karatsuba_probe.restype = i32
-    lib.tfhe_expand_probe.argtypes = [vp, vp, vp, *[i32] * 6, vp]
-    lib.tfhe_expand_probe.restype = i32
-    lib.tfhe_cmux_step_karatsuba.restype = i32
+    sizes, tables = ctypes.POINTER(StepSizes), ctypes.POINTER(DotsArgs)
+    signatures = {
+        # acc key bara_t lhs, n_steps
+        "tfhe_blind_rotate": [vp, vp, vp, vp, sizes, tables, i32],
+        # acc limbs bara_t lhs scratch entry_masks, n_steps
+        "tfhe_blind_rotate_compact": [vp] * 6 + [sizes, tables, i32],
+        "tfhe_rotate_decompose_rows": [vp, vp, vp, sizes],  # acc bara lhs
+        "tfhe_rotate_decompose": [vp, vp, vp, sizes],  # acc bara digits
+        "tfhe_cmux_matmul": [vp, vp, vp, sizes, tables],  # acc digits e_step
+        # acc e_step bara lhs, nzn
+        "tfhe_mk_cmux_step": [vp, vp, vp, vp, sizes, tables, i32],
+        # acc e_chunk bara_t lhs, n_steps nzn
+        "tfhe_mk_blind_rotate_chunk": [vp] * 4 + [sizes, tables, i32, i32],
+        # acc limbs bara_t lhs scratch entry_masks, n_steps nzn
+        "tfhe_mk_blind_rotate_compact": [vp] * 6 + [sizes, tables, i32, i32],
+        # acc key_step bara out lhs ready, stage_rows
+        "tfhe_cmux_step_karatsuba": [vp] * 6 + [sizes, tables, i32],
+        # limbs_step entry_masks out, total_rows p_rows k1 n kmajor
+        "tfhe_expand_step": [vp, vp, vp] + [i32] * 5,
+    }
+    for name, args in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [*args, vp]  # the stream last
+        fn.restype = i32
     lib.tfhe_error_string.argtypes = [i32]
     lib.tfhe_error_string.restype = ctypes.c_char_p
     return lib

@@ -22,11 +22,18 @@ blocks it feeds.
   of every rotation step on its own (rotate, decompose, Karatsuba digit
   combos: the digit operand the dots read), for the single-key and the
   multi-key steps alike.
+* `rotation_launch`: the one prologue of every rotation kernel wrapper
+  (this module's, `compact`'s, `cmux_step`'s, `mk_cmux`'s and
+  `fused_step`'s): the argument check (`check_rotation_args`,
+  `check_rotation_geometry`), the library, the step's `StepSizes` and the
+  dots' `dots.DotsArgs` (the two structs every rotation C entry takes),
+  the output and the digit rows.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -300,6 +307,18 @@ def combo_table(plan: KaratsubaPlan, p: int, t: int):
             lhs_rows)
 
 
+class StepSizes(ctypes.Structure):
+    """A rotation C entry's sizes and combo table (csrc/cmux_kernels.cuh:
+    StepSizes): the batch, K, N, the gadget l and b, M = N/T, the digit
+    row's segments of P*T bytes, the key's rows of P*T bytes a step, the
+    decomposition offset, and n_combos `pack_combos` words in host memory
+    (`combo_table`), which the C call copies into its launches."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "batch", "k1", "n", "l", "b", "m", "lhs_rows", "total_rows", "offset",
+        "n_combos")] + [("combos", ctypes.c_void_p)]
+
+
 @cached_build("dots_tables")
 def dots_tables(plan: KaratsubaPlan, k1: int, l: int,
                 t: int) -> dots.DotsTables:
@@ -314,13 +333,14 @@ def require(cond: bool, what: str, who: str):
 
 
 def check_rotation_geometry(who: str, k1: int, n: int, l: int, b: int,
-                            t: int, plan: KaratsubaPlan):
-    """The shapes the rotation kernels serve: T = 128, N a power of two with
-    at most 16 blocks, a gadget that fits 32-bit words and int16 digits, one
+                            t: int, plan: KaratsubaPlan | None = None):
+    """The shapes the rotation kernels serve: T = 128, N a power of two of
+    1 to 16 blocks, a gadget that fits 32-bit words and int16 digits, one
     accumulator row (K*N words) within the shared memory a block can use,
-    and a plan of at most 64 combos and 128 digit segments. Every
-    single-key preset and the multi-key shapes up to 8 parties (K = 9,
-    N = 1024: 36,864 bytes a row) fit. Returns (M, P*T)."""
+    and, where the launch follows a Karatsuba plan, a plan of N/T blocks
+    with at most 64 combos and 128 digit segments. Every single-key preset
+    and the multi-key shapes up to 8 parties (K = 9, N = 1024: 36,864 bytes
+    a row) fit. Returns (M, P*T)."""
     def check(cond, what):
         require(cond, what, who)
 
@@ -329,9 +349,10 @@ def check_rotation_geometry(who: str, k1: int, n: int, l: int, b: int,
           f"gadget l={l}, b={b} does not fit 32-bit words and int16 digits")
     m = n // t
     pt = k1 * l * t
-    check(n == m * t and n & (n - 1) == 0 and plan.m == m,
-          f"plan m={plan.m} does not fit N={n} (a power of two)")
-    check(m <= 16, "at most 16 blocks per polynomial")
+    check(n == m * t and n & (n - 1) == 0 and 1 <= m <= 16,
+          f"N={n} must be a power of two of 1 to 16 blocks of T")
+    if plan is not None:
+        check(plan.m == m, f"plan m={plan.m} does not fit N={n}")
     try:  # the dots kernel's word sums (M x 8 KB) beside a 3-slot ring
         dots.ring_stages(m)
     except ValueError as err:
@@ -340,36 +361,44 @@ def check_rotation_geometry(who: str, k1: int, n: int, l: int, b: int,
     check(row_bytes <= MAX_ROW_SMEM,
           f"one accumulator row (K={k1}, N={n}: {row_bytes} bytes) exceeds "
           f"the {MAX_ROW_SMEM} bytes of shared memory a block can use")
-    try:
-        combo_table(plan, k1 * l, t)
-    except ValueError as err:
-        raise ValueError(f"{who}: {err}") from None
+    if plan is not None:
+        try:
+            combo_table(plan, k1 * l, t)
+        except ValueError as err:
+            raise ValueError(f"{who}: {err}") from None
     return m, pt
 
 
-def check_rotation_args(who: str, acc: torch.Tensor, key: torch.Tensor,
-                        bara_t: torch.Tensor, l: int, b: int, t: int,
-                        plan: KaratsubaPlan):
-    """What every whole-rotation kernel wrapper requires of its arguments;
-    returns (batch, k1, N, M, P*T). `key` is the baked or the compact key."""
+def check_rotation_args(who: str, acc: torch.Tensor, key: torch.Tensor | None,
+                        bara_t: torch.Tensor | None, l: int, b: int, t: int,
+                        plan: KaratsubaPlan | None = None):
+    """What every rotation kernel wrapper requires of its tensors: acc
+    int32[B, K, N], the int8 key (baked, compact, dense or an operand, its
+    steps first) and bara_t int32[n, B], where the launch takes them, all
+    contiguous on one CUDA device, at a geometry `check_rotation_geometry`
+    serves. Returns (batch, k1, N, M, P*T)."""
     def check(cond, what):
         require(cond, what, who)
 
-    check(acc.dim() == 3 and key.dim() >= 3 and bara_t.dim() == 2,
+    tensors = [x for x in (acc, key, bara_t) if x is not None]
+    check(acc.dim() == 3 and (key is None or key.dim() >= 3)
+          and (bara_t is None or bara_t.dim() == 2),
           "acc must be [B, K, N], bara_t [n, B]")
-    check(acc.is_cuda and key.is_cuda and bara_t.is_cuda,
-          "tensors must be on a CUDA device")
-    check(acc.device == key.device == bara_t.device,
+    check(all(x.is_cuda for x in tensors), "tensors must be on a CUDA device")
+    check(all(x.device == acc.device for x in tensors),
           "tensors must share one device")
-    check(acc.dtype == torch.int32 and bara_t.dtype == torch.int32
-          and key.dtype == torch.int8, "dtypes must be int32/int8/int32")
-    check(acc.is_contiguous() and key.is_contiguous()
-          and bara_t.is_contiguous(), "tensors must be contiguous")
+    check(acc.dtype == torch.int32
+          and (bara_t is None or bara_t.dtype == torch.int32)
+          and (key is None or key.dtype == torch.int8),
+          "dtypes must be int32/int8/int32")
+    check(all(x.is_contiguous() for x in tensors),
+          "tensors must be contiguous")
     bsz, k1, n = acc.shape
     m, pt = check_rotation_geometry(who, k1, n, l, b, t, plan)
-    check(tuple(bara_t.shape) == (key.shape[0], bsz),
-          f"bara_t must be [{key.shape[0]}, {bsz}], "
-          f"got {tuple(bara_t.shape)}")
+    if bara_t is not None:
+        steps = bara_t.shape[0] if key is None else key.shape[0]
+        check(tuple(bara_t.shape) == (steps, bsz),
+              f"bara_t must be [{steps}, {bsz}], got {tuple(bara_t.shape)}")
     return bsz, k1, n, m, pt
 
 
@@ -377,6 +406,73 @@ def raise_on_error(who: str, lib, err: int):
     if err != 0:
         raise RuntimeError(f"{who}: CUDA error {err} "
                            f"({lib.tfhe_error_string(err).decode()})")
+
+
+class Launch(NamedTuple):
+    """What `rotation_launch` prepares for one rotation C entry call."""
+
+    lib: ctypes.CDLL
+    sizes: StepSizes
+    dots: dots.DotsArgs | None  # None where no dots launch
+    out: torch.Tensor | None  # the copy of acc the dots add into
+    lhs: torch.Tensor  # the digit rows, B x lhs_rows*P*T bytes
+    stream: ctypes.c_void_p
+    pt: int  # P*T, the bytes of a digit segment
+    combos: torch.Tensor  # the words `sizes` points at, held
+
+
+def rotation_launch(who: str, acc: torch.Tensor, key: torch.Tensor | None,
+                    bara_t: torch.Tensor | None, *, l: int, b: int, t: int,
+                    offset: int, plan: KaratsubaPlan | None = None,
+                    combos: tuple | None = None,
+                    tables: Callable[[], dots.DotsTables] | None = None,
+                    lhs: torch.Tensor | None = None,
+                    calls: int = 1) -> Launch:
+    """The prologue of every rotation kernel wrapper: `check_rotation_args`
+    on its tensors (key and bara_t with their steps first, None where the
+    launch takes none), then the library, the two structs the C entry takes
+    and its buffers, on acc's device and current stream.
+
+    * plan: the Karatsuba plan, whose `combo_table` the launch takes;
+      without one, combos = (the caller's combos as `kernel_tables` gives
+      them, lhs_rows), checked by `combo_words`.
+    * tables: makes the dots' tables (called after the check), which
+      `dots.dots_args` puts on the device and counts as `calls` C calls,
+      unless the batch or the key's steps are empty and nothing launches;
+      with them `out` is a copy of acc that the dots add into.
+    * lhs: the digit rows where the caller has them, else new ones.
+
+    The wrapper's own checks (the key's layout, the compact limbs, the
+    multi-key blocks) follow, then its C call."""
+    from . import _build
+
+    bsz, k1, n, m, pt = check_rotation_args(who, acc, key, bara_t, l, b, t,
+                                            plan)
+    if plan is not None:
+        words, n_combos, lhs_rows = combo_table(plan, k1 * l, t)
+    else:
+        given, lhs_rows = combos
+        try:
+            packed = combo_words(given, m, lhs_rows)
+        except ValueError as err:
+            raise ValueError(f"{who}: {err}") from None
+        words = torch.tensor(packed or [0], dtype=torch.int32)
+        n_combos = len(packed)
+    lib = _build.load()
+    sizes = StepSizes(bsz, k1, n, l, b, m, lhs_rows,
+                      0 if plan is None else plan.total_rows, offset,
+                      n_combos, words.data_ptr())
+    steps = bara_t.shape[0] if key is None else key.shape[0]
+    args, out = None, None
+    if tables is not None:
+        out = acc.clone()
+        if bsz and steps:
+            args = dots.dots_args(tables(), bsz, acc.device, calls)
+    if lhs is None:
+        lhs = torch.empty((bsz, lhs_rows * pt), dtype=torch.int8,
+                          device=acc.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(acc.device).cuda_stream)
+    return Launch(lib, sizes, args, out, lhs, stream, pt, words)
 
 
 def digit_rows_kernel(acc: torch.Tensor, bara: torch.Tensor, combos,
@@ -388,41 +484,16 @@ def digit_rows_kernel(acc: torch.Tensor, bara: torch.Tensor, combos,
     Launches on the current stream and does not synchronise. The
     `instrument` counter "rotate_decompose_rows" counts this kernel's
     launches, those the whole-rotation wrappers make included."""
-    from . import _build
-
     who = "digit_rows_kernel"
-    require(acc.is_cuda and bara.is_cuda and acc.device == bara.device,
-            "tensors must be on one CUDA device", who)
-    require(acc.dim() == 3 and acc.dtype == torch.int32
-            and acc.is_contiguous(), "acc must be a contiguous int32[B, K, N]",
-            who)
-    bsz, k1, n = acc.shape
-    require(tuple(bara.shape) == (bsz,) and bara.dtype == torch.int32
-            and bara.is_contiguous(), f"bara must be int32[{bsz}]", who)
-    m, pt = n // t, k1 * l * t
-    require(t == KERNEL_BLOCK and n == m * t and n & (n - 1) == 0
-            and 1 <= m <= 16,
-            f"T must be {KERNEL_BLOCK} and N a power of two of 1-16 blocks",
-            who)
-    require(1 <= b <= 15 and l * b <= 32 and k1 * n * 4 <= MAX_ROW_SMEM,
-            f"gadget l={l}, b={b} or row K={k1}, N={n} not served", who)
-    try:
-        words = combo_words(combos, m, lhs_rows)
-    except ValueError as err:
-        raise ValueError(f"{who}: {err}") from None
-    table = torch.tensor(words or [0], dtype=torch.int32)
-    lib = _build.load()
-    lhs = torch.empty((bsz, lhs_rows * pt), dtype=torch.int8,
-                      device=acc.device)
-    if bsz:
-        stream = torch.cuda.current_stream(acc.device).cuda_stream
-        err = lib.tfhe_rotate_decompose_rows(
-            acc.data_ptr(), bara.data_ptr(), lhs.data_ptr(), table.data_ptr(),
-            len(words), bsz, k1, n, l, b, m, lhs_rows, offset,
-            ctypes.c_void_p(stream))
-        raise_on_error(who, lib, err)
+    run = rotation_launch(who, acc, None, bara[None], l=l, b=b, t=t,
+                          offset=offset, combos=(combos, lhs_rows))
+    if run.sizes.batch:
+        err = run.lib.tfhe_rotate_decompose_rows(
+            acc.data_ptr(), bara.data_ptr(), run.lhs.data_ptr(), run.sizes,
+            run.stream)
+        raise_on_error(who, run.lib, err)
         count("rotate_decompose_rows")
-    return lhs
+    return run.lhs
 
 
 def digit_rows(acc: torch.Tensor, bara: torch.Tensor, combos, lhs_rows: int,
@@ -439,33 +510,23 @@ def blind_rotate_kernel(acc: torch.Tensor, e_all: torch.Tensor,
     `blind_rotate_plain`, with the key K-major: e_all int8[n, K, 4, T,
     total_rows*P*T] (`dots.to_kmajor` of the bake). Takes T = 128 only.
     Launches on the current stream and does not synchronise."""
-    from . import _build
-
     who = "blind_rotate_kernel"
-    bsz, k1, n, m, pt = check_rotation_args(who, acc, e_all, bara_t, l, b, t,
-                                            plan)
+    run = rotation_launch(
+        who, acc, e_all, bara_t, l=l, b=b, t=t,
+        offset=decomp_offset(l, b, balanced), plan=plan,
+        tables=lambda: dots_tables(plan, acc.shape[1], l, t))
     n_steps = e_all.shape[0]
-    dots.require_kmajor(who, e_all, (n_steps,), k1, t, plan.total_rows * pt)
-
-    lib = _build.load()
-    combos, n_combos, lhs_rows = combo_table(plan, k1 * l, t)
-    out = acc.clone()
-    lhs = torch.empty((bsz, lhs_rows * pt), dtype=torch.int8,
-                      device=acc.device)
-    if n_steps and bsz:
-        stream = torch.cuda.current_stream(acc.device).cuda_stream
-        tables = dots.dots_args(dots_tables(plan, k1, l, t), bsz, acc.device)
-        offset = decomp_offset(l, b, balanced)
+    dots.require_kmajor(who, e_all, (n_steps,), run.sizes.k1, t,
+                        plan.total_rows * run.pt)
+    if run.dots is not None:
         with span("tfhe.enqueue"):
-            err = lib.tfhe_blind_rotate(
-                out.data_ptr(), e_all.data_ptr(), bara_t.data_ptr(),
-                lhs.data_ptr(), combos.data_ptr(), n_combos, *tables, bsz,
-                k1, n, l, b, m, n_steps, lhs_rows, plan.total_rows, offset,
-                ctypes.c_void_p(stream))
-        raise_on_error(who, lib, err)
+            err = run.lib.tfhe_blind_rotate(
+                run.out.data_ptr(), e_all.data_ptr(), bara_t.data_ptr(),
+                run.lhs.data_ptr(), run.sizes, run.dots, n_steps, run.stream)
+        raise_on_error(who, run.lib, err)
         count("blind_rotate")
         count("rotate_decompose_rows", n_steps)  # its first launch of a step
-    return out
+    return run.out
 
 
 def blind_rotate_baked(acc: torch.Tensor, e_all: torch.Tensor,

@@ -24,20 +24,13 @@ key takes on the card), and raise on the reference layout.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..instrument import cached_build, count, span
 from ..polynomial import mul_by_monomial
 from ..tgsw import decomp_offset, decompose
 from . import dots
-from .blind_rotate import (
-    KERNEL_BLOCK,
-    MAX_ROW_SMEM,
-    raise_on_error,
-    require,
-)
+from .blind_rotate import raise_on_error, require, rotation_launch
 from .conv import (
     block_toeplitz_matmul,
     i8_matmul,
@@ -148,54 +141,20 @@ def blind_rotate_dense_plain(acc: torch.Tensor, e_all: torch.Tensor,
 # --- kernel wrappers ---
 
 
-def _dims(who: str, acc: torch.Tensor, l: int, b: int, t: int):
-    require(acc.is_cuda and acc.dtype == torch.int32 and acc.is_contiguous()
-            and acc.dim() == 3,
-            "acc must be a contiguous int32[B, K, N] CUDA tensor", who)
-    require(t == KERNEL_BLOCK, f"block T must be {KERNEL_BLOCK}, got {t}",
-            who)
-    require(1 <= b <= 11 and l * b <= 32,
-            f"gadget l={l}, b={b} does not fit 32-bit words and two int8 "
-            "digit limbs", who)
-    bsz, k1, n = acc.shape
-    require(n % t == 0 and n & (n - 1) == 0 and n // t <= 16,
-            f"N={n} must be a power of two of 1 to 16 blocks of T", who)
-    require(k1 * n * 4 <= MAX_ROW_SMEM,
-            f"one accumulator row (K={k1}, N={n}) exceeds the shared memory "
-            "a block can use", who)
-    return bsz, k1, n, n // t, len(digit_limb_shifts(b))
-
-
-def _on_device(who: str, x: torch.Tensor, ref: torch.Tensor, dtype, shape,
-               name: str):
-    require(x.device == ref.device and x.dtype == dtype
-            and tuple(x.shape) == tuple(shape),
-            f"{name} must be {dtype}{list(shape)} on {ref.device}, got "
-            f"{x.dtype}{list(x.shape)} on {x.device}", who)
-
-
-def _launch_rotate_decompose(lib, acc, bara, buf, dims, l, b, offset):
-    bsz, k1, n, m, s_limbs = dims
-    stream = torch.cuda.current_stream(acc.device).cuda_stream
-    with span("tfhe.enqueue"):
-        err = lib.tfhe_rotate_decompose(
-            acc.data_ptr(), bara.data_ptr(), buf.data_ptr(), bsz, k1, n, l,
-            b, m, s_limbs, offset, ctypes.c_void_p(stream))
-    raise_on_error("rotate_decompose_kernel", lib, err)
-    count("rotate_decompose")
-
-
-def _launch_cmux_matmul(lib, acc, buf, e_step, dims, l, b):
-    bsz, k1, n, m, s_limbs = dims
-    tables = _dense_dots_tables(k1, l, m, digit_limb_shifts(b), KERNEL_BLOCK)
-    args = dots.dots_args(tables, bsz, acc.device)
-    stream = torch.cuda.current_stream(acc.device).cuda_stream
-    with span("tfhe.enqueue"):
-        err = lib.tfhe_cmux_matmul(
-            acc.data_ptr(), buf.data_ptr(), e_step.data_ptr(), *args, bsz,
-            k1, n, l, m, s_limbs, ctypes.c_void_p(stream))
-    raise_on_error("cmux_matmul_kernel", lib, err)
-    count("cmux_matmul")
+def _dense_launch(who, acc, key, bara_t, l, b, t, balanced=False, lhs=None,
+                  calls=1):
+    """`rotation_launch` for the dense step: no Karatsuba plan, the digit
+    row S*M segments (the S digit limbs of M blocks, no combos), the dense
+    product table; raises unless the digits fit two int8 limbs."""
+    require(b <= 11, f"gadget l={l}, b={b} does not fit 32-bit words and "
+            "two int8 digit limbs", who)
+    m, s_limbs = acc.shape[-1] // t, len(digit_limb_shifts(b))
+    return rotation_launch(
+        who, acc, key, bara_t, l=l, b=b, t=t,
+        offset=decomp_offset(l, b, balanced), combos=((), s_limbs * m),
+        tables=None if key is None else lambda: _dense_dots_tables(
+            acc.shape[1], l, m, digit_limb_shifts(b), t),
+        lhs=lhs, calls=calls)
 
 
 def rotate_decompose_kernel(bara: torch.Tensor, acc: torch.Tensor, *, l: int,
@@ -203,19 +162,17 @@ def rotate_decompose_kernel(bara: torch.Tensor, acc: torch.Tensor, *, l: int,
     """`rotate_decompose_plain` through the CUDA kernel. The result
     int8[S, B, M*P*T] is a view of a buffer laid out [B, S, M*P*T], the
     layout `cmux_matmul_kernel` reads without a copy."""
-    from . import _build
-
     who = "rotate_decompose_kernel"
-    dims = _dims(who, acc, l, b, t)
-    bsz, k1, n, m, s_limbs = dims
-    _on_device(who, bara, acc, torch.int32, (bsz,), "bara")
-    require(bara.is_contiguous(), "bara must be contiguous", who)
-    buf = torch.empty((bsz, s_limbs, m * k1 * l * t), dtype=torch.int8,
-                      device=acc.device)
-    if bsz:
-        _launch_rotate_decompose(_build.load(), acc, bara, buf, dims, l, b,
-                                 decomp_offset(l, b, balanced))
-    return buf.permute(1, 0, 2)
+    run = _dense_launch(who, acc, None, bara[None], l, b, t, balanced)
+    if run.sizes.batch:
+        with span("tfhe.enqueue"):
+            err = run.lib.tfhe_rotate_decompose(
+                acc.data_ptr(), bara.data_ptr(), run.lhs.data_ptr(),
+                run.sizes, run.stream)
+        raise_on_error(who, run.lib, err)
+        count("rotate_decompose")
+    return run.lhs.view(run.sizes.batch, len(digit_limb_shifts(b)),
+                        run.sizes.m * run.pt).permute(1, 0, 2)
 
 
 def cmux_matmul_kernel(digits: torch.Tensor, acc: torch.Tensor,
@@ -223,21 +180,24 @@ def cmux_matmul_kernel(digits: torch.Tensor, acc: torch.Tensor,
                        t: int) -> torch.Tensor:
     """`cmux_matmul_plain` through the CUDA dots kernel driven by the dense
     product table; e_step K-major, int8[K, 4, T, 2M*P*T]."""
-    from . import _build
-
     who = "cmux_matmul_kernel"
-    dims = _dims(who, acc, l, b, t)
-    bsz, k1, n, m, s_limbs = dims
-    pt = k1 * l * t
-    _on_device(who, digits, acc, torch.int8, (s_limbs, bsz, m * pt), "digits")
-    dots.require_kmajor(who, e_step, (), k1, t, 2 * m * pt)
-    _on_device(who, e_step, acc, torch.int8, e_step.shape, "e_step")
-    require(e_step.is_contiguous(), "e_step must be contiguous", who)
+    run = _dense_launch(who, acc, e_step[None], None, l, b, t, lhs=digits)
+    bsz, k1, m = run.sizes.batch, run.sizes.k1, run.sizes.m
+    shape = (len(digit_limb_shifts(b)), bsz, m * run.pt)
+    require(digits.device == acc.device and digits.dtype == torch.int8
+            and tuple(digits.shape) == shape,
+            f"digits must be int8{list(shape)} on {acc.device}, got "
+            f"{digits.dtype}{list(digits.shape)} on {digits.device}", who)
+    dots.require_kmajor(who, e_step, (), k1, t, 2 * m * run.pt)
     buf = digits.permute(1, 0, 2).contiguous()  # no copy for the kernel's own
-    out = acc.clone()
-    if bsz:
-        _launch_cmux_matmul(_build.load(), out, buf, e_step, dims, l, b)
-    return out
+    if run.dots is not None:
+        with span("tfhe.enqueue"):
+            err = run.lib.tfhe_cmux_matmul(
+                run.out.data_ptr(), buf.data_ptr(), e_step.data_ptr(),
+                run.sizes, run.dots, run.stream)
+        raise_on_error(who, run.lib, err)
+        count("cmux_matmul")
+    return run.out
 
 
 def cmux_step_kernel(acc: torch.Tensor, e_step: torch.Tensor,
@@ -263,29 +223,28 @@ def blind_rotate_dense_kernel(acc: torch.Tensor, e_all: torch.Tensor,
     (int8[n, K, 4, T, 2M*P*T]): the two kernels of the step, n times on
     the current stream, the accumulator updated in place in one copy of
     `acc`. Does not synchronise."""
-    from . import _build
-
     who = "blind_rotate_dense_kernel"
-    dims = _dims(who, acc, l, b, t)
-    bsz, k1, n, m, s_limbs = dims
-    pt = k1 * l * t
     n_steps = e_all.shape[0]
-    dots.require_kmajor(who, e_all, (n_steps,), k1, t, 2 * m * pt)
-    _on_device(who, e_all, acc, torch.int8, e_all.shape, "e_all")
-    _on_device(who, bara_t, acc, torch.int32, (n_steps, bsz), "bara_t")
-    require(e_all.is_contiguous() and bara_t.is_contiguous(),
-            "tensors must be contiguous", who)
-    out = acc.clone()
-    if not (n_steps and bsz):
-        return out
-    lib = _build.load()
-    offset = decomp_offset(l, b, balanced)
-    buf = torch.empty((bsz, s_limbs, m * pt), dtype=torch.int8,
-                      device=acc.device)
+    run = _dense_launch(who, acc, e_all, bara_t, l, b, t, balanced,
+                        calls=n_steps)
+    dots.require_kmajor(who, e_all, (n_steps,), run.sizes.k1, t,
+                        2 * run.sizes.m * run.pt)
+    if run.dots is None:
+        return run.out
     for s in range(n_steps):
-        _launch_rotate_decompose(lib, out, bara_t[s], buf, dims, l, b, offset)
-        _launch_cmux_matmul(lib, out, buf, e_all[s], dims, l, b)
-    return out
+        with span("tfhe.enqueue"):
+            err = run.lib.tfhe_rotate_decompose(
+                run.out.data_ptr(), bara_t[s].data_ptr(), run.lhs.data_ptr(),
+                run.sizes, run.stream)
+        raise_on_error("rotate_decompose_kernel", run.lib, err)
+        count("rotate_decompose")
+        with span("tfhe.enqueue"):
+            err = run.lib.tfhe_cmux_matmul(
+                run.out.data_ptr(), run.lhs.data_ptr(), e_all[s].data_ptr(),
+                run.sizes, run.dots, run.stream)
+        raise_on_error("cmux_matmul_kernel", run.lib, err)
+        count("cmux_matmul")
+    return run.out
 
 
 def blind_rotate_dense(acc: torch.Tensor, e_all: torch.Tensor,

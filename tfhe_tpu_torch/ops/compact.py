@@ -35,12 +35,11 @@ from ..instrument import cached_build, count, span
 from ..tgsw import decomp_offset
 from . import dots
 from .blind_rotate import (
-    check_rotation_args,
-    combo_table,
     dots_tables,
     mux_rotate_karatsuba,
     raise_on_error,
     require,
+    rotation_launch,
 )
 from .karatsuba import KaratsubaPlan, entry_rows, expand_karatsuba_step
 
@@ -132,27 +131,6 @@ def expand_step_kernel(limbs_step: torch.Tensor, *, t: int,
     return out
 
 
-def expand_step_probe(limbs_step: torch.Tensor, *, t: int,
-                      plan: KaratsubaPlan, probe: int) -> None:
-    """Timing only, never on a path: the K-major expansion's launch as
-    probe 1 (the sums alone), 2 (the stores of a constant) or 3 (an empty
-    grid, the launch floor), into a scratch output. Takes what
-    `expand_step_kernel` takes, unchecked."""
-    from . import _build
-
-    lib = _build.load()
-    _, p, k1, n2 = limbs_step.shape
-    out = torch.empty((k1, 4, t, plan.total_rows * p * t), dtype=torch.int8,
-                      device=limbs_step.device)
-    stream = torch.cuda.current_stream(limbs_step.device).cuda_stream
-    err = lib.tfhe_expand_probe(
-        limbs_step.data_ptr(),
-        _device_entry_masks(plan, str(limbs_step.device)).data_ptr(),
-        out.data_ptr(), plan.total_rows, p, k1, n2 // 2, 1, probe,
-        ctypes.c_void_p(stream))
-    raise_on_error("expand_step_probe", lib, err)
-
-
 def expand_step(limbs_step: torch.Tensor, *, t: int,
                 plan: KaratsubaPlan) -> torch.Tensor:
     """CPU tensors take the plain version, CUDA tensors the kernel."""
@@ -181,41 +159,30 @@ def blind_rotate_compact_kernel(acc: torch.Tensor, limbs: torch.Tensor,
     """Whole blind rotation from the compact key through the CUDA kernels;
     the same contract as `blind_rotate_compact_plain`. Takes T = 128 only.
     Launches on the current stream and does not synchronise."""
-    from . import _build
-
     who = "blind_rotate_compact_kernel"
-    bsz, k1, n, m, pt = check_rotation_args(who, acc, limbs, bara_t, l, b, t,
-                                            plan)
+    run = rotation_launch(
+        who, acc, limbs, bara_t, l=l, b=b, t=t,
+        offset=decomp_offset(l, b, balanced), plan=plan,
+        tables=lambda: dots_tables(plan, acc.shape[1], l, t))
+    k1, n = run.sizes.k1, run.sizes.n
     require(limbs.dim() == 5 and limbs.shape[2] == k1 * l,
             f"compact key shape {tuple(limbs.shape)} does not fit l={l}", who)
     _check_limbs(who, limbs.shape[1:], k1, n, t, plan)
     n_steps = limbs.shape[0]
-
-    lib = _build.load()
-    device = str(acc.device)
-    combos, n_combos, lhs_rows = combo_table(plan, k1 * l, t)
-    masks = _device_entry_masks(plan, device)
-    out = acc.clone()
-    lhs = torch.empty((bsz, lhs_rows * pt), dtype=torch.int8,
-                      device=acc.device)
-    scratch = torch.empty((k1, 4, t, plan.total_rows * pt), dtype=torch.int8,
-                          device=acc.device)  # K-major
-    if n_steps and bsz:
-        stream = torch.cuda.current_stream(acc.device).cuda_stream
-        tables = dots.dots_args(dots_tables(plan, k1, l, t), bsz, acc.device)
-        offset = decomp_offset(l, b, balanced)
+    masks = _device_entry_masks(plan, str(acc.device))
+    scratch = torch.empty((k1, 4, t, plan.total_rows * run.pt),
+                          dtype=torch.int8, device=acc.device)  # K-major
+    if run.dots is not None:
         with span("tfhe.enqueue"):
-            err = lib.tfhe_blind_rotate_compact(
-                out.data_ptr(), limbs.data_ptr(), bara_t.data_ptr(),
-                lhs.data_ptr(), scratch.data_ptr(), masks.data_ptr(),
-                combos.data_ptr(), n_combos, *tables, bsz, k1, n, l, b, m,
-                n_steps, lhs_rows, plan.total_rows, offset,
-                ctypes.c_void_p(stream))
-        raise_on_error(who, lib, err)
+            err = run.lib.tfhe_blind_rotate_compact(
+                run.out.data_ptr(), limbs.data_ptr(), bara_t.data_ptr(),
+                run.lhs.data_ptr(), scratch.data_ptr(), masks.data_ptr(),
+                run.sizes, run.dots, n_steps, run.stream)
+        raise_on_error(who, run.lib, err)
         count("blind_rotate_compact")
         count("expand_karatsuba_step")
         count("rotate_decompose_rows", n_steps)
-    return out
+    return run.out
 
 
 def blind_rotate_compact(acc: torch.Tensor, limbs: torch.Tensor,

@@ -39,6 +39,18 @@ def i8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out[:m, :n]
 
 
+def recombine_limbs(prods: torch.Tensor) -> torch.Tensor:
+    """int32 [m, 4*C], the products of a table's four int8 limbs laid out
+    (limb, column) side by side, -> int32 [m, C]: the sum of limb << 8*limb,
+    mod 2^32 (the keyswitch's table)."""
+    m, cols = prods.shape
+    prods = prods.reshape(m, 4, cols // 4)
+    acc = prods[:, 0].clone()
+    for limb in range(1, 4):
+        acc += prods[:, limb] << (8 * limb)
+    return acc
+
+
 def negacyclic_toeplitz(t: torch.Tensor) -> torch.Tensor:
     """t: [..., N] int32 -> Toeplitz [..., N(m), N(r)], T[m, r] =
     doubled[(r - m) mod 2N] with doubled = [t, -t]. The negation happens in

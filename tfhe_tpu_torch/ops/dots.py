@@ -16,7 +16,8 @@ The tables. A lowering (`blind_rotate.product_tables`,
 `mk_cmux.mk_product_tables`, `cmux_step.dense_product_tables`) lists each
 distinct product once with its targets (output block, sign). `encode_*`
 turn a lowering into the kernel's rows; `dots_args` adds the work items,
-the ring depth and puts everything on the device.
+the ring depth and the cluster size, puts the rows on the device and fills
+`DotsArgs`, the struct every C entry takes for its dots launches.
 
 Work items. A block owns one column tile (poly k, 32 coefficients, four
 limbs) of one batch tile of 64 rows for all M output blocks, and a range of
@@ -40,6 +41,7 @@ call in `dots.per_sm.<r>` by that number r.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -266,21 +268,33 @@ def _device_items(tables: DotsTables, tiles: int, target_blocks: int,
     return int_table(items, device), len(items)
 
 
-def dots_args(tables: DotsTables, batch: int, device: torch.device) -> tuple:
-    """What every C entry takes for its dots launches: (products, targets,
-    items, n_items, stages, cluster), the tables on `device`; counts a
-    clustered call in `dots.clustered`, and every call in `dots.per_sm.<r>`
-    by the blocks an SM holds."""
+class DotsArgs(ctypes.Structure):
+    """The dots tables of a C entry's launches (csrc/dots_sm90.cuh:
+    DotsArgs): the product and target rows and the work items (n_items
+    rows) on the device, the ring's slots, and the blocks of a cluster
+    along the batch tile. The device rows are held by the caches of this
+    module."""
+
+    _fields_ = [("products", ctypes.c_void_p), ("targets", ctypes.c_void_p),
+                ("items", ctypes.c_void_p), ("n_items", ctypes.c_int),
+                ("stages", ctypes.c_int), ("cluster", ctypes.c_int)]
+
+
+def dots_args(tables: DotsTables, batch: int, device: torch.device,
+              calls: int = 1) -> DotsArgs:
+    """What every C entry takes for its dots launches, the tables on
+    `device`, for `calls` C calls at this batch; counts the clustered calls
+    in `dots.clustered`, and every call in `dots.per_sm.<r>` by the blocks
+    an SM holds."""
     dev = str(device)
-    stages = ring_stages(tables.m)
     per_sm = blocks_per_sm(tables.m)
-    count(f"dots.per_sm.{per_sm}")
+    count(f"dots.per_sm.{per_sm}", calls)
     tiles = -(-batch // ROW_TILE)
     cluster = cluster_size(tiles)
     if cluster > 1:
-        count("dots.clustered")
+        count("dots.clustered", calls)
     products, targets = _device_rows(tables, dev)
     items, n_items = _device_items(tables, tiles,
                                    _WAVES * per_sm * _sm_count(dev), dev)
-    return (products.data_ptr(), targets.data_ptr(), items.data_ptr(),
-            n_items, stages, cluster)
+    return DotsArgs(products.data_ptr(), targets.data_ptr(), items.data_ptr(),
+                    n_items, ring_stages(tables.m), cluster)

@@ -29,21 +29,17 @@ test emulates it).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..instrument import cached_build, count, span
 from ..tgsw import decomp_offset
 from . import dots
 from .blind_rotate import (
-    check_rotation_geometry,
-    combo_table,
     dots_tables,
     kernel_tables,
     mux_rotate_karatsuba,
     raise_on_error,
-    require,
+    rotation_launch,
 )
 from .karatsuba import KaratsubaPlan
 
@@ -131,79 +127,31 @@ def cmux_step_karatsuba_kernel(acc: torch.Tensor, e_step: torch.Tensor,
     rotation's `lhs`), which the kernel's blocks write and read back by TMA
     while it is in L2, and one int32 counter per 64-row batch tile."""
     who = "cmux_step_karatsuba_kernel"
-
-    def check(cond, what):
-        require(cond, what, who)
-
-    check(acc.dim() == 3 and bara.dim() == 1,
-          "acc must be [B, K, N], bara [B]")
-    bsz, k1, n = acc.shape
-    m, pt = check_rotation_geometry(who, k1, n, l, b, t, plan)
-    dots.require_kmajor(who, e_step, (), k1, t, plan.total_rows * pt)
-    check(acc.is_cuda and e_step.is_cuda and bara.is_cuda,
-          "tensors must be on a CUDA device")
-    check(acc.device == e_step.device == bara.device,
-          "tensors must share one device")
-    check(acc.dtype == torch.int32 and bara.dtype == torch.int32
-          and e_step.dtype == torch.int8, "dtypes must be int32/int8/int32")
-    check(acc.is_contiguous() and e_step.is_contiguous()
-          and bara.is_contiguous(), "tensors must be contiguous")
-    check(tuple(bara.shape) == (bsz,), f"bara must be [{bsz}]")
-
+    if acc.dim() == 3:  # the layout first: named as such on any device
+        k1 = acc.shape[1]
+        dots.require_kmajor(who, e_step, (), k1, t,
+                            plan.total_rows * k1 * l * t)
+    run = rotation_launch(who, acc, e_step[None], bara[None], l=l, b=b, t=t,
+                          offset=decomp_offset(l, b, balanced), plan=plan)
+    bsz, k1, n, m = (run.sizes.batch, run.sizes.k1, run.sizes.n,
+                     run.sizes.m)
     out = torch.empty_like(acc)
     if bsz:
-        lib, args, _scratch = _launch_args(acc, e_step, bara, out, l, b, t,
-                                           plan, balanced)
+        products, targets, items, n_items = _device_tables(plan, k1, l, t,
+                                                           str(acc.device))
+        tables = dots.DotsArgs(products.data_ptr(), targets.data_ptr(),
+                               items.data_ptr(), n_items,
+                               dots.ring_stages(m), 1)
+        ready = torch.empty((-(-bsz // dots.ROW_TILE),), dtype=torch.int32,
+                            device=acc.device)
         with span("tfhe.enqueue"):
-            err = lib.tfhe_cmux_step_karatsuba(*args)
-        raise_on_error(who, lib, err)
+            err = run.lib.tfhe_cmux_step_karatsuba(
+                acc.data_ptr(), e_step.data_ptr(), bara.data_ptr(),
+                out.data_ptr(), run.lhs.data_ptr(), ready.data_ptr(),
+                run.sizes, tables, stage_rows(k1, n, m), run.stream)
+        raise_on_error(who, run.lib, err)
         count("cmux_step_karatsuba")
     return out
-
-
-def _launch_args(acc, e_step, bara, out, l, b, t, plan, balanced):
-    """The C entry's arguments: (lib, args, the scratch tensors, to be held
-    until the launch is enqueued)."""
-    from . import _build
-
-    bsz, k1, n = acc.shape
-    m, pt = n // t, k1 * l * t
-    lib = _build.load()
-    combos, n_combos, lhs_rows = combo_table(plan, k1 * l, t)
-    products, targets, items, n_items = _device_tables(plan, k1, l, t,
-                                                       str(acc.device))
-    lhs = torch.empty((bsz, lhs_rows * pt), dtype=torch.int8,
-                      device=acc.device)
-    ready = torch.empty((-(-bsz // dots.ROW_TILE),), dtype=torch.int32,
-                        device=acc.device)
-    stream = torch.cuda.current_stream(acc.device).cuda_stream
-    return lib, (acc.data_ptr(), e_step.data_ptr(), bara.data_ptr(),
-                 out.data_ptr(), lhs.data_ptr(), ready.data_ptr(),
-                 combos.data_ptr(), n_combos, products.data_ptr(),
-                 targets.data_ptr(), items.data_ptr(), n_items,
-                 dots.ring_stages(m), stage_rows(k1, n, m), bsz, k1, n, l, b,
-                 m, lhs_rows, plan.total_rows, decomp_offset(l, b, balanced),
-                 ctypes.c_void_p(stream)), (lhs, ready)
-
-
-def cmux_step_karatsuba_probe(acc: torch.Tensor, e_step: torch.Tensor,
-                              bara: torch.Tensor, *, probe: int, l: int,
-                              b: int, t: int, plan: KaratsubaPlan,
-                              balanced: bool) -> int:
-    """Timing only, never on a path: the kernel's launch with phase 1 alone
-    (probe 1) or phase 2 alone (probe 2, on scratch digits), its output
-    meaningless; probe 0 launches nothing and returns the blocks the card
-    holds at once (the grid of a large batch). Takes what
-    `cmux_step_karatsuba_kernel` takes, unchecked."""
-    out = torch.empty_like(acc)
-    lib, args, _scratch = _launch_args(acc, e_step, bara, out, l, b, t, plan,
-                                       balanced)
-    resident = ctypes.c_int(0)
-    err = lib.tfhe_cmux_step_karatsuba_probe(
-        *args[:-1], probe, ctypes.byref(resident) if probe == 0 else None,
-        args[-1])
-    raise_on_error("cmux_step_karatsuba_probe", lib, err)
-    return resident.value
 
 
 def cmux_step_karatsuba(acc: torch.Tensor, e_step: torch.Tensor,

@@ -39,8 +39,6 @@ accumulator column k.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..instrument import cached_build, count, span
@@ -48,11 +46,10 @@ from ..polynomial import mul_by_monomial
 from ..tgsw import decomp_offset, decompose
 from . import dots
 from .blind_rotate import (
-    check_rotation_args,
-    combo_table,
     kernel_plan,
     raise_on_error,
     require,
+    rotation_launch,
 )
 from .compact import _device_entry_masks, expand_step_kernel
 from .karatsuba import (
@@ -250,27 +247,16 @@ def _check_nz(who: str, nz, k1: int):
             f"nonzero blocks {nz} do not fit {k1} components", who)
 
 
-def _mk_call(who: str, acc, key, bara_t, l, b, t, plan, nz, balanced):
-    """Checks shared by the three wrappers; returns what every C entry
-    takes: (lib, out, lhs, sizes, tables, stream)."""
-    from . import _build
-
-    bsz, k1, n, m, pt = check_rotation_args(who, acc, key, bara_t, l, b, t,
-                                            plan)
+def _mk_launch(who: str, acc, key, bara_t, l, b, t, plan, nz, balanced):
+    """`rotation_launch` for the multi-key entries, then the blocks' own
+    check; returns (the launch, NZ)."""
     nz = tuple(tuple(pair) for pair in nz)
-    _check_nz(who, nz, k1)
-    lib = _build.load()
-    combos, n_combos, lhs_rows = combo_table(plan, k1 * l, t)
-    out = acc.clone()
-    lhs = torch.empty((bsz, lhs_rows * pt), dtype=torch.int8,
-                      device=acc.device)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(acc.device).cuda_stream)
-    tables = (combos.data_ptr(), n_combos,
-              *dots.dots_args(_mk_dots_tables(plan, l, k1, t, nz), bsz,
-                              acc.device))
-    sizes = dict(bsz=bsz, k1=k1, n=n, m=m, lhs_rows=lhs_rows, nzn=len(nz),
-                 offset=decomp_offset(l, b, balanced))
-    return lib, out, lhs, sizes, tables, stream
+    run = rotation_launch(
+        who, acc, key, bara_t, l=l, b=b, t=t,
+        offset=decomp_offset(l, b, balanced), plan=plan,
+        tables=lambda: _mk_dots_tables(plan, l, acc.shape[1], t, nz))
+    _check_nz(who, nz, run.sizes.k1)
+    return run, len(nz)
 
 
 def cmux_step_sparse_kernel(acc: torch.Tensor, e_step: torch.Tensor,
@@ -283,21 +269,18 @@ def cmux_step_sparse_kernel(acc: torch.Tensor, e_step: torch.Tensor,
     reference layout). Takes T = 128 only. Launches on the current stream
     and does not synchronise."""
     who = "cmux_step_sparse_kernel"
-    require(bara.dim() == 1, "bara must be [B]", who)
-    lib, out, lhs, sz, tables, stream = _mk_call(
-        who, acc, e_step[None], bara[None], l, b, t, plan, nz, balanced)
+    run, nzn = _mk_launch(who, acc, e_step[None], bara[None], l, b, t, plan,
+                          nz, balanced)
     dots.require_kmajor(who, e_step, (), 1, t, e_step_rows(plan, l, t, nz))
-    if sz["bsz"]:
+    if run.dots is not None:
         with span("tfhe.enqueue"):
-            err = lib.tfhe_mk_cmux_step(
-                out.data_ptr(), e_step.data_ptr(), bara.data_ptr(),
-                lhs.data_ptr(), *tables, sz["bsz"], sz["k1"], sz["n"], l, b,
-                sz["m"], sz["lhs_rows"], plan.total_rows, sz["nzn"],
-                sz["offset"], stream)
-        raise_on_error(who, lib, err)
+            err = run.lib.tfhe_mk_cmux_step(
+                run.out.data_ptr(), e_step.data_ptr(), bara.data_ptr(),
+                run.lhs.data_ptr(), run.sizes, run.dots, nzn, run.stream)
+        raise_on_error(who, run.lib, err)
         count("cmux_step_sparse")
         count("rotate_decompose_rows")
-    return out
+    return run.out
 
 
 def mk_blind_rotate_chunk_kernel(acc: torch.Tensor, e_chunk: torch.Tensor,
@@ -309,22 +292,21 @@ def mk_blind_rotate_chunk_kernel(acc: torch.Tensor, e_chunk: torch.Tensor,
     T, R*NZ*l*T] (`expand_sparse`'s steps on the card, stacked; raises on
     the reference layout)."""
     who = "mk_blind_rotate_chunk_kernel"
-    lib, out, lhs, sz, tables, stream = _mk_call(
-        who, acc, e_chunk, bara_t, l, b, t, plan, nz, balanced)
+    run, nzn = _mk_launch(who, acc, e_chunk, bara_t, l, b, t, plan, nz,
+                          balanced)
     n_steps = e_chunk.shape[0]
     dots.require_kmajor(who, e_chunk, (n_steps,), 1, t,
                         e_step_rows(plan, l, t, nz))
-    if n_steps and sz["bsz"]:
+    if run.dots is not None:
         with span("tfhe.enqueue"):
-            err = lib.tfhe_mk_blind_rotate_chunk(
-                out.data_ptr(), e_chunk.data_ptr(), bara_t.data_ptr(),
-                lhs.data_ptr(), *tables, sz["bsz"], sz["k1"], sz["n"], l, b,
-                sz["m"], n_steps, sz["lhs_rows"], plan.total_rows,
-                sz["nzn"], sz["offset"], stream)
-        raise_on_error(who, lib, err)
+            err = run.lib.tfhe_mk_blind_rotate_chunk(
+                run.out.data_ptr(), e_chunk.data_ptr(), bara_t.data_ptr(),
+                run.lhs.data_ptr(), run.sizes, run.dots, n_steps, nzn,
+                run.stream)
+        raise_on_error(who, run.lib, err)
         count("mk_blind_rotate_chunk")
         count("rotate_decompose_rows", n_steps)
-    return out
+    return run.out
 
 
 def mk_blind_rotate_compact_kernel(acc: torch.Tensor, limbs: torch.Tensor,
@@ -335,28 +317,26 @@ def mk_blind_rotate_compact_kernel(acc: torch.Tensor, limbs: torch.Tensor,
     launches per step); the same contract as
     `mk_blind_rotate_compact_plain`."""
     who = "mk_blind_rotate_compact_kernel"
-    lib, out, lhs, sz, tables, stream = _mk_call(
-        who, acc, limbs, bara_t, l, b, t, plan, nz, balanced)
-    n_steps = limbs.shape[0]
-    require(tuple(limbs.shape) == (n_steps, 4, sz["nzn"], l, 2 * sz["n"]),
+    run, nzn = _mk_launch(who, acc, limbs, bara_t, l, b, t, plan, nz,
+                          balanced)
+    n_steps, n = limbs.shape[0], run.sizes.n
+    require(tuple(limbs.shape) == (n_steps, 4, nzn, l, 2 * n),
             f"compact limbs {tuple(limbs.shape)}, expected "
-            f"(n, 4, {sz['nzn']}, {l}, {2 * sz['n']})", who)
+            f"(n, 4, {nzn}, {l}, {2 * n})", who)
     masks = _device_entry_masks(plan, str(acc.device))
     scratch = torch.empty((4, t, e_step_rows(plan, l, t, nz)),
                           dtype=torch.int8, device=acc.device)  # K-major
-    if n_steps and sz["bsz"]:
+    if run.dots is not None:
         with span("tfhe.enqueue"):
-            err = lib.tfhe_mk_blind_rotate_compact(
-                out.data_ptr(), limbs.data_ptr(), bara_t.data_ptr(),
-                lhs.data_ptr(), scratch.data_ptr(), masks.data_ptr(),
-                *tables, sz["bsz"], sz["k1"], sz["n"], l, b, sz["m"],
-                n_steps, sz["lhs_rows"], plan.total_rows, sz["nzn"],
-                sz["offset"], stream)
-        raise_on_error(who, lib, err)
+            err = run.lib.tfhe_mk_blind_rotate_compact(
+                run.out.data_ptr(), limbs.data_ptr(), bara_t.data_ptr(),
+                run.lhs.data_ptr(), scratch.data_ptr(), masks.data_ptr(),
+                run.sizes, run.dots, n_steps, nzn, run.stream)
+        raise_on_error(who, run.lib, err)
         count("mk_blind_rotate_compact")
         count("expand_karatsuba_step")  # the loop runs that kernel too
         count("rotate_decompose_rows", n_steps)
-    return out
+    return run.out
 
 
 # --- dispatchers ---

@@ -52,7 +52,7 @@ from ..api import CloudKey
 from ..bootstrap import bootstrap_wo_keyswitch
 from ..keyswitch import KeyswitchKey, keyswitch_onehot
 from ..lwe import LweSample
-from ..ops.conv import i8_matmul
+from ..ops.conv import i8_matmul, recombine_limbs
 
 AXES = ("data", "model")
 
@@ -251,17 +251,12 @@ def _keyswitch_tp(ks: KeyswitchKey, u: LweSample, mesh: DeviceMesh
     l, b = ks.decomp_length, ks.log2_base
     table = _local(ks.table_limbs)
     block = table.shape[0]
-    cols_p = table.shape[-1] // 4
     k_dim = ks.n_in * l * (1 << b)
 
     onehot = keyswitch_onehot(u.a, l, b).reshape(-1, k_dim)
     start = mesh.get_local_rank("model") * block
     partial = i8_matmul(onehot[:, start:start + block], table)
-    full = all_reduce_sum(partial, mesh.get_group("model"))
-    full = full.reshape(-1, 4, cols_p)
-    acc = full[:, 0].clone()
-    for limb in range(1, 4):
-        acc += full[:, limb] << (8 * limb)
+    acc = recombine_limbs(all_reduce_sum(partial, mesh.get_group("model")))
     return LweSample(-acc[:, :ks.n_out], u.b - acc[:, ks.n_out], u.cv)
 
 
