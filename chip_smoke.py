@@ -17,8 +17,8 @@ back):
    8 parties with K = 9; B = 70 unless named), then its time at the
    presets' shapes (B = 4096, 256 for 8 parties) beside its byte bound;
    the baked Karatsuba rotation (128_fast with B = 256 and 300, toy,
-   N = 1024 at depth 2 (`tfhe_parameters_128`'s plan) with B = 64 and 70,
-   the plans of 128_pbs (K = 3, N = 512) and
+   N = 1024 at depth 2 (`tfhe_parameters_128`'s plan) with B = 64, 70,
+   130 and 200 and at B = 4096 over 2 steps, the plans of 128_pbs (K = 3, N = 512) and
    128_radix_reliable (l = 4, b = 6) with B = 70, and the 80-bit shape with
    b = 10); the expansion
    kernel in both layouts against `expand_karatsuba_step` and against that
@@ -34,7 +34,9 @@ back):
    and the sparse expansion (K-major and the reference layout) at N = 1024,
    depth 2 with the plans of 2 parties (both parties, l = 5 b = 6 and
    l = 4 b = 7), 4 parties and 8 parties (sparse-stored, party 5,
-   triangular and full), B = 70; the fused Karatsuba step, handed the
+   triangular and full), B = 70, and the 2-party plans (l = 5 b = 6) at
+   B = 130 (both parties) and 200 (party 1); the fused Karatsuba step,
+   handed the
    K-major step, against its plain version and against the whole-rotation
    kernel at one step and at eight, B = 70 (a ragged second batch tile),
    at the plans of 128_fast, 128_radix, 128_radix_reliable, 128_pbs and the
@@ -43,11 +45,14 @@ back):
    (`ops/dots.py:to_kmajor`), the plain versions the reference layout of the
    same bytes; the multi-key operands are K-major on the card, relaid with
    `from_kmajor` for the plain versions. Each line of a case that runs the
-   dots kernels names `c`, the blocks of their clusters, as the call's
-   `dots.clustered` count shows it (one a C entry call whose launches run
-   in clusters), and checks that count against `ops/dots.py:cluster_size`:
-   2 where the batch's 64-row tiles pair up (B = 70, 256, 4096), else 1, a
-   plain launch (B = 64, 300). Then each kernel timed at B = 4096
+   dots kernels names `r`, the batch rows of a block, as the call's
+   `dots.row_tile.<r>` count shows it, and `c`, the blocks of their
+   clusters, as its `dots.clustered` count shows it (one a C entry call
+   whose launches run in clusters), and checks both against
+   `ops/dots.py:row_tile` and `cluster_size`: r = 128 at N = 1024 past
+   B = 64, else 64; c = 2 where the batch tiles pair up (B = 70 and 256 at
+   64 rows, 130, 200 and 4096 at 128), else 1, a plain launch (B = 64,
+   300, and 70 at 128 rows). Then each kernel timed at B = 4096
    over 8 steps beside its plain version, with its bound from the shapes;
    for the dots kernels also
    the int8 operations executed (from the product tables they read) and
@@ -316,23 +321,29 @@ class Kernels:
               f"{name} kernel != plain at {what} (max |diff| {err})")
         print(f"[3 kernel=plain] {name} {what}: equal", flush=True)
 
-    def compare_dots(self, name, what, batch, kernel_fn, want, calls=1):
-        """compare() for a kernel whose `calls` C entry calls run the dots:
-        the `dots.clustered` count that kernel_fn() adds must be the
-        cluster rule's at this batch, and the line names the `c` it shows."""
-        got, seen = clustered_calls(kernel_fn)
-        rule = cluster_of(batch)
+    def compare_dots(self, name, what, batch, m, kernel_fn, want, calls=1):
+        """compare() for a kernel whose `calls` C entry calls run the dots
+        at M output blocks: the `dots.clustered` and `dots.row_tile.<r>`
+        counts that kernel_fn() adds must be the rules' at this batch and
+        M, and the line names the `r` and `c` they show."""
+        got, seen, rows_seen = clustered_calls(kernel_fn)
+        rows, rule = dots_tile(batch, m)
         check(seen == calls * int(rule > 1),
               f"{name} at {what}: dots.clustered counted {seen} over "
               f"{calls} calls, the rule at B={batch} says c={rule}")
-        self.compare(name, f"{what} c={2 if seen else 1}", got, want)
+        check(rows_seen == {rows: calls},
+              f"{name} at {what}: dots.row_tile counted {rows_seen} over "
+              f"{calls} calls, the rule at B={batch} M={m} says r={rows}")
+        self.compare(name, f"{what} r={rows} c={2 if seen else 1}", got,
+                     want)
 
     def timed(self, name, what, kernel_fn, plain_fn, bound, card,
               dots=None):
         """dots: for a kernel that runs the int8 dots, (executed, useful
-        operations, the `torch._int_mm` yardstick's ms, the blocks of its
-        clusters) of the timed call; one more call of kernel_fn shows the
-        blocks by its `dots.clustered` count, which must agree.
+        operations, the `torch._int_mm` yardstick's ms, the batch rows of
+        its blocks, the blocks of its clusters) of the timed call; one more
+        call of kernel_fn shows the blocks by its `dots.clustered` count,
+        which must agree.
         The operation counts come from the tables the kernel reads, not from
         the card, so they go on this line only; the yardstick is measured and
         also goes into the kernels record."""
@@ -342,13 +353,13 @@ class Kernels:
         ent["bound_ms"], ent["bound_by"] = bound
         extra = "no single library call"
         if dots is not None:
-            executed, useful, mm_ms, cluster = dots
+            executed, useful, mm_ms, rows, cluster = dots
             seen = 2 if clustered_calls(kernel_fn)[1] else 1
             check(seen == cluster, f"{name} at {what}: dots.clustered shows "
                   f"c={seen}, expected c={cluster}")
             sec = ent["ms"] / 1e3
             ent["int_mm_products_ms"] = mm_ms
-            extra = (f"dots c={cluster}: "
+            extra = (f"dots r={rows} c={cluster}: "
                      f"{executed:.4g} int8 ops executed, {useful:.4g} useful, "
                      f"counted from the tables (x{executed / useful:.3f}): "
                      f"{executed / sec / 1e12:.1f}"
@@ -361,14 +372,15 @@ class Kernels:
 
 
 def dots_ops(tables, batch: int, cols: int, useful: float, steps: int = 1,
-             cluster=None):
-    """(executed, useful, int_mm ms, c) of `steps` dots launches at this
+             tile=None):
+    """(executed, useful, int_mm ms, r, c) of `steps` dots launches at this
     batch: every product of the kernel's table once over the `cols` key
     columns it serves (all K*4*T of a single-key step, the 4*T of a
     multi-key block), the summed time of `torch._int_mm` over the same
     products (one timed call per distinct [batch, depth] x [depth, cols]
-    shape, times its count), and the blocks of the launches' clusters
-    (`cluster`, else the dots launches' own rule at this batch)."""
+    shape, times its count), the batch rows of a block and the blocks of
+    the launches' clusters (`tile` = (r, c), else the dots launches' own
+    rules at this batch and the table's M)."""
     from collections import Counter
 
     from tfhe_tpu_torch.ops.dots import CHUNK
@@ -381,25 +393,36 @@ def dots_ops(tables, batch: int, cols: int, useful: float, steps: int = 1,
         a, b = rand_i8(gen, (batch, depth)), rand_i8(gen, (depth, cols))
         mm_ms += count * cuda_ms(lambda: torch._int_mm(a, b), reps=10)
     return (steps * executed, steps * useful, steps * mm_ms,
-            cluster or cluster_of(batch))
+            *(tile or dots_tile(batch, tables.m)))
 
 
-def cluster_of(batch: int) -> int:
-    """The blocks of a dots launch's clusters at this batch (c = 1: a
-    plain launch)."""
+def dots_tile(batch: int, m: int):
+    """(r, c): the batch rows of a dots block at this batch and M
+    (`ops/dots.py:row_tile`) and the blocks of the launch's clusters (c =
+    1: a plain launch)."""
     from tfhe_tpu_torch.ops import dots
 
-    return dots.cluster_size(-(-batch // dots.ROW_TILE))
+    rows = dots.row_tile(m, batch)
+    return rows, dots.cluster_size(-(-batch // rows))
 
 
 def clustered_calls(fn):
-    """fn()'s result and the `dots.clustered` count it added: its C entry
-    calls whose dots launches ran in clusters."""
+    """fn()'s result, the `dots.clustered` count it added (its C entry
+    calls whose dots launches ran in clusters) and the `dots.row_tile.<r>`
+    counts it added, as {r: calls}."""
     from tfhe_tpu_torch.instrument import counts
 
-    before = counts().get("dots.clustered", 0)
+    prefix = "dots.row_tile."
+
+    def tiles():
+        return {int(k[len(prefix):]): n for k, n in counts().items()
+                if k.startswith(prefix)}
+
+    before, rows_before = counts().get("dots.clustered", 0), tiles()
     out = fn()
-    return out, counts().get("dots.clustered", 0) - before
+    rows = {r: n - rows_before.get(r, 0) for r, n in tiles().items()
+            if n != rows_before.get(r, 0)}
+    return out, counts().get("dots.clustered", 0) - before, rows
 
 
 def phase3(gen, card) -> Kernels:
@@ -432,12 +455,16 @@ def phase3(gen, card) -> Kernels:
                         ("toy", 2, 256, 3, 7, 1, 8, 64),
                         ("N1024_depth2", 2, 1024, 3, 7, 2, 4, 64),
                         ("N1024_depth2", 2, 1024, 3, 7, 2, 4, 70),
+                        ("N1024_depth2", 2, 1024, 3, 7, 2, 4, 130),
+                        ("N1024_depth2", 2, 1024, 3, 7, 2, 4, 200),
+                        ("cggi128", 2, 1024, 3, 7, 2, 2, 4096),
                         ("128_pbs", 3, 512, 3, 7, 2, 4, 70),
                         ("128_radix_reliable", 2, 1024, 4, 6, 2, 4, 70),
                         ("80bit_b10", 2, 1024, 2, 10, 2, 4, 64)]:
         acc, key, bara_t, kw = random_case(gen, *dims)
         key_km = to_kmajor(key)
         ks.compare_dots("blind_rotate", f"{name} {shape(*dims)}", dims[-1],
+                        dims[1] // T,
                         lambda: blind_rotate_kernel(acc, key_km, bara_t, **kw),
                         blind_rotate_plain(acc, key, bara_t, **kw))
 
@@ -467,6 +494,7 @@ def phase3(gen, card) -> Kernels:
         acc, limbs, bara_t, kw = random_case(gen, *dims, form="compact")
         ks.compare_dots(
             "blind_rotate_compact", f"{name} {shape(*dims)}", dims[-1],
+            dims[1] // T,
             lambda: compact.blind_rotate_compact_kernel(acc, limbs, bara_t,
                                                         **kw),
             compact.blind_rotate_compact_plain(acc, limbs, bara_t, **kw))
@@ -484,11 +512,12 @@ def phase3(gen, card) -> Kernels:
         mm = dict(l=kw["l"], b=kw["b"], t=T)
         key_km = to_kmajor(key)
         ks.compare_dots(
-            "cmux_matmul", what, dims[-1],
+            "cmux_matmul", what, dims[-1], dims[1] // T,
             lambda: cmux_step.cmux_matmul_kernel(digits, acc, key_km[1], **mm),
             cmux_step.cmux_matmul_plain(digits, acc, key[1], **mm))
         ks.compare_dots(
             "cmux_matmul", what + " (whole rotation)", dims[-1],
+            dims[1] // T,
             lambda: cmux_step.blind_rotate_dense_kernel(acc, key_km, bara_t,
                                                         **kw),
             cmux_step.blind_rotate_dense_plain(acc, key, bara_t, **kw),
@@ -724,7 +753,7 @@ def phase3_fused(ks, gen, card):
         blind_rotate_kernel,
         dots_tables,
     )
-    from tfhe_tpu_torch.ops.dots import to_kmajor
+    from tfhe_tpu_torch.ops.dots import ROW_TILE, to_kmajor
     from tfhe_tpu_torch.ops.fused_step import (
         cmux_step_karatsuba_kernel,
         cmux_step_karatsuba_plain,
@@ -779,7 +808,7 @@ def phase3_fused(ks, gen, card):
              lambda: chain(cmux_step_karatsuba_plain, acc, key, bara_t, kw),
              bound_ms(io, dots, PEAK_INT8_OPS_PER_S), card,
              dots_ops(dots_tables(kw["plan"], 5, 2, T), BATCH, cols,
-                      dots / steps, steps, cluster=1))
+                      dots / steps, steps, tile=(ROW_TILE, 1)))
 
 
 # The fused step's plans (name, K, N, l, b, depth): 128_fast, 128_radix,
@@ -842,6 +871,9 @@ def phase3_mk(ks, gen, card):
         (4, 3, 5, 6, 2, 70, False, False),
         (8, 5, 8, 4, 2, 70, True, True),
         (8, 5, 8, 4, 2, 70, False, True),  # K = 9, P = 72: 73,728 digit bytes
+        (2, 0, 5, 6, 2, 130, True, False),  # 128-row tiles: the second's
+        (2, 1, 5, 6, 2, 130, True, False),  # second warpgroup past B
+        (2, 1, 5, 6, 2, 200, True, False),
     ]
     for parties, party, l, b, n_steps, batch, progressive, sparse in cases:
         acc, limbs, bara_t, kw = mk_case(gen, parties, party, l, b, n_steps,
@@ -865,18 +897,19 @@ def phase3_mk(ks, gen, card):
                                   st.contiguous().reshape(
                                       4, len(nz) * l, 1, st.shape[-1]),
                                   t=t, plan=plan)), e_ref)
+        m = MK_N // T
         ks.compare_dots(
-            "cmux_step_sparse", what, batch,
+            "cmux_step_sparse", what, batch, m,
             lambda: mk_cmux.cmux_step_sparse_kernel(acc, e_chunk[1],
                                                     bara_t[1], **kw),
             mk_cmux.cmux_step_sparse_plain(acc, e_ref[1], bara_t[1], **kw))
         ks.compare_dots(
-            "mk_blind_rotate_chunk", what, batch,
+            "mk_blind_rotate_chunk", what, batch, m,
             lambda: mk_cmux.mk_blind_rotate_chunk_kernel(acc, e_chunk, bara_t,
                                                          **kw),
             mk_cmux.mk_blind_rotate_chunk_plain(acc, e_ref, bara_t, **kw))
         ks.compare_dots(
-            "mk_blind_rotate_compact", what, batch,
+            "mk_blind_rotate_compact", what, batch, m,
             lambda: mk_cmux.mk_blind_rotate_compact_kernel(acc, limbs, bara_t,
                                                            **kw),
             mk_cmux.mk_blind_rotate_compact_plain(acc, limbs, bara_t, **kw))
@@ -2861,7 +2894,8 @@ def main() -> int:
                    "rotate_decompose_kernelILi8ELb0E",
                    "rotate_decompose_kernelILi8ELb1E",
                    "rotate_decompose_kernelILi16ELb0E",
-                   "leaf_dots_kernel", "mk_unit_dots_kernel",
+                   "leaf_dots_kernelILi1EE", "leaf_dots_kernelILi2EE",
+                   "mk_unit_dots_kernelILi1EE", "mk_unit_dots_kernelILi2EE",
                    "expand_kernelILb0EE", "expand_kernelILb1EE",
                    "rotate_decompose_dense_kernelILi2E",
                    "rotate_decompose_dense_kernelILi8E",
@@ -2876,10 +2910,12 @@ def main() -> int:
         report.append(f"{kernel}: {used.split(':', 1)[1].strip()}")
     spills = [ln for ln in log if "spill" in ln and "0 bytes spill stores, "
               "0 bytes spill loads" not in ln]
-    # the dots kernels' dynamic shared memory: the ring and M blocks' sums
-    ring = ", ".join(f"M={m}: {dots.ring_stages(m)} slots, "
-                     f"{dots.smem_bytes(m, dots.ring_stages(m))} bytes"
-                     for m in (1, 2, 4, 8))
+    # the dots kernels' dynamic shared memory: the ring and each
+    # warpgroup's M blocks' sums, at 64 rows a block and at 128 (M = 8)
+    ring = ", ".join(
+        f"M={m} r={r}: {dots.ring_stages(m, r)} slots, "
+        f"{dots.smem_bytes(m, dots.ring_stages(m, r), r)} bytes"
+        for m, r in ((1, 64), (2, 64), (4, 64), (8, 64), (8, 128)))
     print(f"[2 build] {build_s:.2f} s, {len(_build._SOURCES)} sources in "
           f"parallel | " + " | ".join(report)
           + f" | kernels with spills: {len(spills)} | dots shared memory "

@@ -15,7 +15,10 @@
   swizzle, wgmma descriptor) that reads back the reference byte.
 * The dots launches' cluster size (`ops/dots.py:cluster_size`) and the
   `dots.clustered` counter; the blocks an SM holds
-  (`ops/dots.py:blocks_per_sm`) and the `dots.per_sm.<r>` counter.
+  (`ops/dots.py:blocks_per_sm`) and the `dots.per_sm.<r>` counter, beside
+  the batch rows of a block that each call counts (the rule itself, the
+  launch order and the emulation over 128-row tiles:
+  tests/test_torch_dots_tiles.py).
 * On a CUDA card only: the kernel itself against the plain version
   (tests/test_torch_dots_cluster.py: the clustered launches).
 """
@@ -32,7 +35,8 @@ from tfhe_tpu import bootstrap as j_bs
 from tfhe_tpu import tlwe as j_tlwe
 from tfhe_tpu_torch import bootstrap as p_bs
 from tfhe_tpu_torch import instrument, interop
-from tfhe_tpu_torch.ops import dots
+from tfhe_tpu_torch.mk.internals import active_plan
+from tfhe_tpu_torch.ops import dots, mk_cmux
 from tfhe_tpu_torch.ops.blind_rotate import (
     blind_rotate_kernel,
     blind_rotate_plain,
@@ -88,46 +92,65 @@ def test_blind_rotate_matches_reference(n, l, b, t, depth, k1):
 
 
 def emulate_dots(acc, lhs8, key, tables, *, t, poly_columns,
-                 target_blocks=10_000):
+                 target_blocks=10_000, row_tile=None):
     """The dots kernel (csrc/dots_sm90.cuh) from its encoded tables, one
-    work item at a time: acc int64[B, K, N] (returned updated, not
-    wrapped), lhs8 the digit rows int8[B, stride], key the step in the
-    reference layout [rows, K*4*T] (poly_columns: the item's k picks the
-    key's poly) or [rows, 4*T] (multi-key). A large `target_blocks` cuts
-    every column's products into small ranges, as small batches do."""
+    block's unit at a time in the launch's order: acc int64[B, K, N]
+    (returned updated, not wrapped), lhs8 the digit rows int8[B, stride],
+    key the step in the reference layout [rows, K*4*T] (poly_columns: the
+    item's k picks the key's poly) or [rows, 4*T] (multi-key). A large
+    `target_blocks` cuts every column's products into small ranges, as
+    small batches do. row_tile: the batch rows of a block (default: the
+    kernels' rule at this batch, `dots.row_tile`), whose warpgroups own 64
+    rows each and add only their rows below the batch."""
     bsz = acc.shape[0]
-    items = dots.work_items(tables, -(-bsz // dots.ROW_TILE), target_blocks)
-    covered = collections.Counter()
+    rows = row_tile or dots.row_tile(tables.m, bsz)
+    tiles = -(-bsz // rows)
+    items = dots.work_items(tables, tiles, target_blocks)
+    units = dots.launch_order(tables, items, tiles, dots.cluster_size(tiles))
+    assert sorted(units) == sorted((*it, tile) for it in items
+                                   for tile in range(tiles))
+    covered, written = collections.Counter(), collections.Counter()
     out = acc.clone()
-    for col, lo, hi, atomic in items:
+    for col, lo, hi, atomic, tile in units:
         k, wt = divmod(col, 4)
-        covered.update((col, i) for i in range(lo, hi))
+        own = [r for r0 in range(tile * rows, (tile + 1) * rows,
+                                 dots.ROW_TILE)
+               for r in range(r0, min(r0 + dots.ROW_TILE, bsz))]
+        covered.update((tile, col, i) for i in range(lo, hi))
+        written.update((r, col) for r in own)
         kk = k if poly_columns else 0
         cols = [kk * 4 * t + limb * t + wt * dots.COL_TILE + w
                 for limb in range(4) for w in range(dots.COL_TILE)]
         for a_off, b_off, npieces, chunks, shift, tb, te, _ in \
                 tables.products[lo:hi]:
-            part = torch.zeros((bsz, 4 * dots.COL_TILE), dtype=torch.int64)
+            part = torch.zeros((len(own), 4 * dots.COL_TILE),
+                               dtype=torch.int64)
             for i in range(npieces):
                 a0 = a_off + i * tables.a_stride
                 b0 = b_off + i * tables.b_stride
                 width = chunks * dots.CHUNK
-                part += i8_matmul(lhs8[:, a0:a0 + width],
+                part += i8_matmul(lhs8[own, a0:a0 + width],
                                   key[b0:b0 + width][:, cols]).to(torch.int64)
-            part = part.reshape(bsz, 4, dots.COL_TILE)
+            part = part.reshape(len(own), 4, dots.COL_TILE)
             word = sum(part[:, limb] << (8 * limb) for limb in range(4))
             for posm, sign in tables.targets[tb:te]:
                 c0 = posm * t + wt * dots.COL_TILE
-                out[:, k, c0:c0 + dots.COL_TILE] += sign * (word << shift)
-    # every column tile runs each of its column's products exactly once
-    for k, (b, e) in enumerate(tables.columns):
-        for wt in range(4):
-            assert all(covered[(4 * k + wt, i)] == 1 for i in range(b, e))
-    assert sum(covered.values()) == 4 * sum(e - b for b, e in tables.columns)
+                out[own, k, c0:c0 + dots.COL_TILE] += sign * (word << shift)
+    # every column tile of every batch tile runs each of its column's
+    # products exactly once, and its blocks own every row of the batch
+    for tile in range(tiles):
+        for k, (b, e) in enumerate(tables.columns):
+            for wt in range(4):
+                assert all(covered[(tile, 4 * k + wt, i)] == 1
+                           for i in range(b, e))
+    assert sum(covered.values()) == \
+        tiles * 4 * sum(e - b for b, e in tables.columns)
+    assert {r for r, _ in written} == set(range(bsz))
     return out
 
 
-def emulate_kernel(acc, e_all, bara_t, *, l, b, t, plan, balanced):
+def emulate_kernel(acc, e_all, bara_t, *, l, b, t, plan, balanced,
+                   row_tile=None):
     """The CUDA kernels' arithmetic, step by step, from their tables: the
     digit rows (`digit_rows_plain`, the first launch), then the dots."""
     bsz, k1, n = acc.shape
@@ -142,7 +165,7 @@ def emulate_kernel(acc, e_all, bara_t, *, l, b, t, plan, balanced):
         lhs8 = digit_rows_plain(acc.to(torch.int32), bara_t[s], combos,
                                 lhs_rows, l=l, b=b, t=t, offset=offset)
         acc = emulate_dots(acc, lhs8, e_all[s], tables, t=t,
-                           poly_columns=True)
+                           poly_columns=True, row_tile=row_tile)
         acc = ((acc + 2**31) & 0xFFFFFFFF) - 2**31
     return acc.to(torch.int32)
 
@@ -260,6 +283,23 @@ def test_work_items_fill_the_card_and_cut_only_where_short():
         assert 3 <= stages <= 6
         assert dots.smem_bytes(m, stages) <= 227 * 1024
     assert dots.smem_bytes(2, dots.ring_stages(2)) + 1024 <= 114 * 1024
+    # two warpgroups' sums beside 3 slots of 32 KB at M = 8; not at M = 16
+    wide = dots.WIDE_ROW_TILE
+    assert dots.ring_stages(8, wide) == 3
+    assert dots.smem_bytes(8, 3, wide) == 229_424 <= 227 * 1024
+    with pytest.raises(ValueError, match="3-slot ring"):
+        dots.ring_stages(16, wide)
+    # B = 4096 in 128-row tiles, cut for 132 blocks of two warpgroups:
+    # cggi128 and both mk2 parties keep whole columns, no atomics
+    tables = dots_tables(karatsuba_plan(8, 2, 7), 2, 3, 128)
+    items = dots.work_items(tables, 32, 132)
+    assert len(items) == 8 and not any(it[3] for it in items)
+    plan = karatsuba_plan(8, 2, 6)
+    for party, n_items in ((0, 8), (1, 12)):
+        _, nz, _, k_act = active_plan(party, 2, True)
+        items = dots.work_items(
+            mk_cmux._mk_dots_tables(plan, 5, k_act, 128, nz), 32, 132)
+        assert len(items) == n_items and not any(it[3] for it in items)
 
 
 @pytest.mark.parametrize("tiles,cluster", [(1, 1), (2, 2), (3, 1),
@@ -295,14 +335,19 @@ def test_blocks_per_sm_follow_m_and_count_per_call(n_poly, depth, per_sm,
     monkeypatch.setattr(dots, "_sm_count", lambda device: 132)
     k1, l, b = (5, 2, 8) if m == 2 else (2, 3, 7)
     tables = dots_tables(karatsuba_plan(m, depth, b), k1, l, 128)
+    rows = dots.row_tile(m, 4096)  # 64 at M = 2, 128 at M = 8
     instrument.reset()
     for _ in range(3):
         args = dots.dots_args(tables, 4096, "cpu")
     seen = {k: n for k, n in instrument.counts().items()
             if k.startswith("dots.")}
-    assert seen == {"dots.clustered": 3, f"dots.per_sm.{per_sm}": 3}
-    items = dots.work_items(tables, 64, 2 * per_sm * 132)
-    assert args.n_items == len(items)
+    assert seen == {"dots.clustered": 3, f"dots.per_sm.{per_sm}": 3,
+                    f"dots.row_tile.{rows}": 3}
+    items = dots.work_items(tables, 4096 // rows,
+                            2 * per_sm * 132 * 64 // rows)
+    assert args.n_items == len(items) * 4096 // rows  # a block a unit
+    assert args.row_tile == rows
+    assert args.stages == dots.ring_stages(m, rows)
     instrument.reset()
 
 

@@ -1,14 +1,19 @@
 """The dots kernels launched in thread-block clusters along the batch
 tile (csrc/cmux_kernels.cuh:launch_dots), on a CUDA card only:
 `leaf_dots_kernel` and `mk_unit_dots_kernel` bit-equal to the plain
-versions at batches whose
-64-row tiles pair up (clusters of 2: B = 4096, and B = 70, whose two tiles
-cut the columns into ranges that add with atomics) and at batches whose
-tiles do not (plain launches: B = 130, B = 1), under the 128_fast and
-cggi128 (`tfhe_parameters_128`) Karatsuba plans and the 2-party MK plans;
-and `dots.clustered` counting the clustered calls. Imports no JAX, so that
-it runs on the card: `python3 -m pytest --noconftest -p no:cacheprovider
-tests/test_torch_dots_cluster.py -m cuda`.
+versions under the 128_fast and cggi128 (`tfhe_parameters_128`) Karatsuba
+plans and the 2-party MK plans, at batches whose tiles pair up (clusters
+of 2) and at batches whose tiles do not (plain launches). 128_fast (M = 2)
+keeps 64-row blocks at every batch: B = 4096, 70 and 200 pair, B = 130
+(three tiles) does not, B = 1 is one tile. At M = 8 (cggi128, MK) a block
+owns 128 rows, two consumer warpgroups, past one 64-row tile
+(`ops/dots.py:row_tile`): B = 4096 (32 tiles), B = 200 (a partial second
+tile) and B = 130 (whose second tile's second warpgroup lies wholly past
+the batch) pair, B = 70 is one tile, its columns cut into ranges that add
+with atomics; B = 1 keeps 64 rows. `dots.clustered` counts the clustered
+calls, `dots.row_tile.<r>` every call by its rows.
+Imports no JAX, so that it runs on the card: `python3 -m pytest
+--noconftest -p no:cacheprovider tests/test_torch_dots_cluster.py -m cuda`.
 """
 
 import pytest
@@ -46,40 +51,60 @@ def rand_bara(gen, n, batch):
                          generator=gen, device=gen.device)
 
 
-def clustered_calls(fn):
-    """fn()'s result and the `dots.clustered` count it added."""
-    before = instrument.counts().get("dots.clustered", 0)
-    out = fn()
-    return out, instrument.counts().get("dots.clustered", 0) - before
+def dots_calls(fn):
+    """fn()'s result and the `dots.clustered` and `dots.row_tile.<r>`
+    counts it added, as (clustered, {r: calls})."""
+    prefix = "dots.row_tile."
+
+    def counts():
+        seen = instrument.counts()
+        return seen.get("dots.clustered", 0), {
+            int(k[len(prefix):]): n for k, n in seen.items()
+            if k.startswith(prefix)}
+
+    (clustered, rows), out = counts(), fn()
+    clustered_after, rows_after = counts()
+    return out, (clustered_after - clustered,
+                 {r: n - rows.get(r, 0) for r, n in rows_after.items()
+                  if n != rows.get(r, 0)})
+
+
+def tile_of(m, batch):
+    """(r, c): the rows of a dots block at M and this batch, and the
+    blocks of the launch's clusters."""
+    rows = dots.row_tile(m, batch)
+    tiles = -(-batch // rows)
+    cluster = dots.cluster_size(tiles)
+    assert tiles % cluster == 0
+    return rows, cluster
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [4096, 70, 130, 1])
+@pytest.mark.parametrize("batch", [4096, 70, 130, 1, 200])
 def test_clustered_dots_match_plain_on_card(batch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    tiles = -(-batch // dots.ROW_TILE)
-    cluster = dots.cluster_size(tiles)
-    assert tiles % cluster == 0
     gen = torch.Generator(device="cuda").manual_seed(batch)
 
     for name, (k1, n, l, b, depth) in SINGLE_KEY.items():
         plan = karatsuba_plan(n // T, depth, b)
-        if batch == 70:  # two tiles: each column cut into ranges (atomics)
-            items = dots.work_items(dots_tables(plan, k1, l, T), tiles,
-                                    2 * 132)
+        rows, cluster = tile_of(n // T, batch)
+        if batch == 70:  # each column cut into ranges (atomics)
+            items = dots.work_items(dots_tables(plan, k1, l, T),
+                                    -(-batch // rows), 2 * 132 * 64 // rows)
             assert any(it[3] for it in items), name
         key = rand_i8(gen, (STEPS, plan.total_rows * k1 * l * T, k1 * 4 * T))
         acc = rand_i32(gen, (batch, k1, n))
         bara_t = rand_bara(gen, n, batch)
         kw = dict(l=l, b=b, t=T, plan=plan, balanced=(b == 8))
-        got, calls = clustered_calls(lambda: blind_rotate_kernel(
+        got, calls = dots_calls(lambda: blind_rotate_kernel(
             acc, dots.to_kmajor(key), bara_t, **kw))
-        assert calls == int(cluster > 1), name
+        assert calls == (int(cluster > 1), {rows: 1}), name
         assert torch.equal(got, blind_rotate_plain(acc, key, bara_t, **kw)), \
-            f"{name} B={batch} c={cluster}"
+            f"{name} B={batch} r={rows} c={cluster}"
 
     plan = karatsuba_plan(MK_N // T, 2, MK_B)
+    rows, cluster = tile_of(MK_N // T, batch)
     for party in (0, 1):
         nz_orig, nz, _, k_act = active_plan(party, 2, True)
         dense = rand_i8(gen, (STEPS, 4, 3 * MK_L, 3, 2 * MK_N))
@@ -93,16 +118,16 @@ def test_clustered_dots_match_plain_on_card(batch):
         e_ref = dots.from_kmajor(e_chunk)
         want = mk_cmux.mk_blind_rotate_compact_plain(acc, limbs, bara_t,
                                                      **kw)
-        what = f"2 parties, party {party}, B={batch} c={cluster}"
+        what = f"2 parties, party {party}, B={batch} r={rows} c={cluster}"
         for fn in (mk_cmux.mk_blind_rotate_compact_kernel,
                    lambda acc, _, bara_t, **kw:
                    mk_cmux.mk_blind_rotate_chunk_kernel(acc, e_chunk, bara_t,
                                                         **kw)):
-            got, calls = clustered_calls(lambda: fn(acc, limbs, bara_t, **kw))
-            assert calls == int(cluster > 1), what
+            got, calls = dots_calls(lambda: fn(acc, limbs, bara_t, **kw))
+            assert calls == (int(cluster > 1), {rows: 1}), what
             assert torch.equal(got, want), what
-        got, calls = clustered_calls(lambda: mk_cmux.cmux_step_sparse_kernel(
+        got, calls = dots_calls(lambda: mk_cmux.cmux_step_sparse_kernel(
             acc, e_chunk[1], bara_t[1], **kw))
-        assert calls == int(cluster > 1), what
+        assert calls == (int(cluster > 1), {rows: 1}), what
         assert torch.equal(got, mk_cmux.cmux_step_sparse_plain(
             acc, e_ref[1], bara_t[1], **kw)), what

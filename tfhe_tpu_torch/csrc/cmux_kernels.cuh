@@ -303,66 +303,85 @@ rotate_decompose_kernel(const int32_t* __restrict__ acc,
   });
 }
 
-// The dots launch of a step (dots_sm90.cuh): one block per (work item,
-// batch tile of kDotRows rows), in clusters of d.t.cluster blocks along the
-// batch tile. The two kernels share one body and differ in where the key's
-// poly coordinate comes from: a single-key step's key holds every output
-// poly k, a multi-key step's operand one (K = 1).
-__global__ void __launch_bounds__(kDotThreads, 2)
+// The dots launch of a step (dots_sm90.cuh): one block per unit (work item,
+// batch tile of WG x 64 rows) in the order of d.t.items, in clusters of
+// d.t.cluster blocks along the batch tile. The two kernels share one body
+// and differ in where the key's poly coordinate comes from: a single-key
+// step's key holds every output poly k, a multi-key step's operand one (K =
+// 1). WG = 1: two blocks an SM where shared memory allows; WG = 2: one
+// block an SM (ops/dots.py:row_tile).
+template <int WG>
+__global__ void __launch_bounds__(dot_threads(WG), WG == 1 ? 2 : 1)
 leaf_dots_kernel(const __grid_constant__ CUtensorMap a_map,
                  const __grid_constant__ CUtensorMap b_map,
                  int32_t* __restrict__ acc, const int32_t* __restrict__ products,
                  const int32_t* __restrict__ targets,
-                 const int32_t* __restrict__ items, DotsParams p) {
-  dots_body<true, false>(&a_map, &b_map, acc, acc, products, targets,
-                         OneItem{items}, p);
+                 const int32_t* __restrict__ units, DotsParams p) {
+  dots_body<true, false, WG>(&a_map, &b_map, acc, acc, products, targets,
+                             OneItem<WG>{units}, p);
 }
 
-__global__ void __launch_bounds__(kDotThreads, 2)
+template <int WG>
+__global__ void __launch_bounds__(dot_threads(WG), WG == 1 ? 2 : 1)
 mk_unit_dots_kernel(const __grid_constant__ CUtensorMap a_map,
                     const __grid_constant__ CUtensorMap b_map,
                     int32_t* __restrict__ acc,
                     const int32_t* __restrict__ products,
                     const int32_t* __restrict__ targets,
-                    const int32_t* __restrict__ items, DotsParams p) {
-  dots_body<false, false>(&a_map, &b_map, acc, acc, products, targets,
-                          OneItem{items}, p);
+                    const int32_t* __restrict__ units, DotsParams p) {
+  dots_body<false, false, WG>(&a_map, &b_map, acc, acc, products, targets,
+                              OneItem<WG>{units}, p);
 }
 
-// Shared memory past 48 KB needs the opt-in; every entry point calls this
-// once before it launches its steps.
+// The dots kernels of WG warpgroups a block, and their launch: a block per
+// unit, in clusters of d.t.cluster blocks; at d.t.cluster = 1 the launch
+// carries no attribute, a plain launch.
+template <int WG>
+struct DotsKernels {
+  // Shared memory past 48 KB needs the opt-in.
+  static cudaError_t allow(size_t smem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        leaf_dots_kernel<WG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(mk_unit_dots_kernel<WG>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+  }
+
+  static cudaError_t launch(int32_t* acc, const DotsLaunch& d,
+                            bool multi_key, cudaStream_t st) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = d.t.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(d.t.n_items, 1, 1);
+    cfg.blockDim = dim3(dot_threads(WG), 1, 1);
+    cfg.dynamicSmemBytes = d.smem;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = d.t.cluster > 1 ? 1 : 0;
+    const cudaError_t err = cudaLaunchKernelEx(
+        &cfg, multi_key ? mk_unit_dots_kernel<WG> : leaf_dots_kernel<WG>,
+        d.a_map, d.b_map, acc, d.t.products, d.t.targets, d.t.items, d.p);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
+};
+
+// Every entry point calls this once before it launches its steps.
 inline cudaError_t allow_dots_smem(const DotsLaunch& d) {
-  cudaError_t err = cudaFuncSetAttribute(
-      leaf_dots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)d.smem);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(mk_unit_dots_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)d.smem);
+  return d.wg == 2 ? DotsKernels<2>::allow(d.smem)
+                   : DotsKernels<1>::allow(d.smem);
 }
 
-// The grid in clusters of (1, d.t.cluster, 1) blocks; at d.t.cluster = 1 the
-// launch carries no attribute, a plain launch.
 inline cudaError_t launch_dots(int32_t* acc, DotsLaunch& d, int step,
                                bool multi_key, cudaStream_t st) {
   d.p.step = step;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = d.t.cluster;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(d.t.n_items, d.tiles);
-  cfg.blockDim = dim3(kDotThreads, 1, 1);
-  cfg.dynamicSmemBytes = d.smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = d.t.cluster > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, multi_key ? mk_unit_dots_kernel : leaf_dots_kernel, d.a_map,
-      d.b_map, acc, d.t.products, d.t.targets, d.t.items, d.p);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return d.wg == 2 ? DotsKernels<2>::launch(acc, d, multi_key, st)
+                   : DotsKernels<1>::launch(acc, d, multi_key, st);
 }
 
 // The expansion of one step's compact limbs int8[4, P, K, 2N] into the
@@ -570,11 +589,15 @@ inline cudaError_t make_dots(DotsLaunch& d, const DotsArgs& t,
                              const int8_t* key, int key_rows, int key_k1,
                              int n_steps, int a_stride = 0,
                              int b_stride = 0) {
-  d.tiles = (p.batch + kDotRows - 1) / kDotRows;
-  if ((t.cluster != 1 && t.cluster != 2) || d.tiles % t.cluster)
+  if (t.row_tile != kDotRows && t.row_tile != 2 * kDotRows)
+    return cudaErrorInvalidValue;
+  d.wg = t.row_tile / kDotRows;
+  const int tiles = (p.batch + t.row_tile - 1) / t.row_tile;
+  if ((t.cluster != 1 && t.cluster != 2) || tiles % t.cluster)
     return cudaErrorInvalidValue;
   d.t = t;
-  cudaError_t err = make_lhs_map(&d.a_map, lhs, p.batch, p.lhs_stride);
+  cudaError_t err = make_lhs_map(&d.a_map, lhs, p.batch, p.lhs_stride,
+                                 t.row_tile);
   if (err != cudaSuccess) return err;
   err = make_key_map(&d.b_map, key, key_rows, key_k1, n_steps);
   if (err != cudaSuccess) return err;
@@ -586,7 +609,7 @@ inline cudaError_t make_dots(DotsLaunch& d, const DotsArgs& t,
   d.p.b_stride = b_stride;
   d.p.stages = t.stages;
   d.p.step = 0;
-  d.smem = dots_smem_bytes(t.stages, p.m);
+  d.smem = dots_smem_bytes(t.stages, p.m, d.wg);
   return cudaSuccess;
 }
 

@@ -25,53 +25,75 @@
 //
 // Who owns what. A block owns a work item: one column tile (output poly k,
 // 32 coefficients wt*32 .. wt*32+31, all four limbs: the wgmma N = 128) and
-// one batch tile of 64 rows (the wgmma M), for ALL M output blocks, and a
+// one batch tile of WG x 64 rows, for ALL M output blocks, and a
 // contiguous range of the products of its column (single-key: every
-// product serves every k; multi-key: the products of output column k). It
-// keeps one word sum per (output block, row, coefficient) it owns in shared
-// memory (M x 8 KB), and at the end adds each sum into acc once.
+// product serves every k; multi-key: the products of output column k). Its
+// WG consumer warpgroups own 64 rows each (the wgmma M). Each keeps one
+// word sum per (output block, row, coefficient) it owns in shared memory
+// (M x 8 KB a warpgroup), and at the end adds each sum into acc once.
+//
+// Which tile (ops/dots.py:row_tile, from M and the batch alone). WG = 2,
+// 128 rows, where the 64-row block is alone on its SM anyway (M = 8: its
+// 6-slot ring and 64 KB of sums take 208 KB), two warpgroups' sums (128
+// KB) fit beside a ring of 3 slots of 32 KB (229,424 bytes of the 232,448
+// a block may opt in to), and the batch has more than one 64-row tile:
+// the single-key presets at N = 1024 and every multi-key preset past batch
+// 64. The two warpgroups read each key tile once between them, so L2 feeds
+// 16 KB per 1 M multiply-adds instead of 24, and one warpgroup's queued
+// products keep the tensor cores busy while the other drains its pipeline
+// and adds its epilogue. WG = 1 everywhere else: M <= 4, where two 64-row
+// blocks share an SM and hide each other's drains (128_fast); M = 16,
+// where two warpgroups' sums leave no 3-slot ring; batches of one 64-row
+// tile; and the fused step (fused_step.cu), whose units are 64-row tiles.
 //
 // Enough blocks. Owning all M output blocks shrinks the grid M-fold (8
-// parties at B = 256: 144 blocks of this tile). The tile stays 64 x 128 (a
-// narrower N would reload the digit tile more often per operation);
+// parties at B = 256: 144 blocks of 64 rows). The tile stays N = 128 wide
+// (a narrower N would reload the digit tile more often per operation);
 // instead ops/dots.py:work_items cuts a column's product list into ranges
-// wherever the grid would hold less than two waves of resident blocks, or
-// one column has far more products than the others (the last multi-key
-// parties), and launches the heaviest items first: 8 parties at B = 256
-// run 304 blocks, the 80-bit preset at B = 256 288, no B = 4096 shape is
-// cut. The items of a cut column add with red.global.add: integer adds
-// mod 2^32 give the same words in any order.
+// wherever the grid would hold less than two waves of resident 64-row
+// warpgroups (a 128-row block counts as two), or one column has far more
+// products than the others (the last multi-key parties): 8 parties at B =
+// 256 run 144-176 blocks of 128 rows, the 80-bit preset at B = 256 144; no
+// B = 4096 shape is cut. The items of a cut column add with
+// red.global.add: integer adds mod 2^32 give the same words in any order.
+// A launch runs its blocks' units (item, batch tile) in the order of a
+// table (ops/dots.py:launch_order): the heaviest items first over all
+// batch tiles, so that no heavy block starts last (the 2-party key's party
+// 1 has 8 items of 540 slots and 4 of 180).
 //
-// How it is fed. Warps 0-3 are one consumer warpgroup that runs
-// wgmma.mma_async m64n128k32 s32.s8.s8 (no .satfinite: sums wrap mod 2^32
-// like the reference's int32) with both operands in shared memory; warp 4 is
-// the producer, one thread of which keeps TMA loads (cp.async.bulk.tensor,
-// 128-byte swizzle) of the digit tile [64 rows x 128 bytes] and the key tile
-// [128 columns x 128 bytes] in flight through a ring of `stages` >= 3
-// slots, each with a `full` and an `empty` mbarrier. Rows past the batch are
+// How it is fed. Warps 0 .. 4*WG-1 are the consumer warpgroups; warpgroup
+// g runs wgmma.mma_async m64n128k32 s32.s8.s8 (no .satfinite: sums wrap
+// mod 2^32 like the reference's int32) on rows 64g .. 64g+63 of the digit
+// tile and the whole key tile, both in shared memory. Warp 4*WG is the
+// producer, one thread of which keeps TMA loads (cp.async.bulk.tensor,
+// 128-byte swizzle) of the digit tile [WG*64 rows x 128 bytes] and the key
+// tile [128 columns x 128 bytes] in flight through a ring of `stages` >= 3
+// slots, each with a `full` and an `empty` mbarrier; a slot is free again
+// once all 4*WG consumer warps have arrived. Rows past the batch are
 // zero-filled by TMA (the digit map's outer extent is the batch) and never
-// written. The key tile arrives K-major, as wgmma reads 8-bit operands: no
-// transpose on the card.
+// written, a whole warpgroup's in a batch's last tile included. The key
+// tile arrives K-major, as wgmma reads 8-bit operands: no transpose on the
+// card.
 //
 // Clusters. Where a launch's batch tiles pair up it runs as thread-block
 // clusters of C = 2 blocks along the batch tile (ops/dots.py:cluster_size;
 // C = 1 is a plain launch, cmux_kernels.cuh:launch_dots). The two blocks of
-// a cluster share blockIdx.x, so they run one work item and read the same
-// key tiles in the same order, and they are scheduled at once on one GPC.
-// The body does not know of the cluster: each block loads its whole slots.
+// a cluster run one work item on neighbouring tiles and read the same key
+// tiles in the same order, and they are scheduled at once on one GPC. The
+// body does not know of the cluster: each block loads its whole slots.
 //
-// What bounds it (an H100 80GB HBM3 at 700 W, the two batch-4096 shapes of
-// the benchmark; PERF.md): every product is computed once (executed =
-// useful operations). In plain launches the executed work ran at 33-36% of
-// the int8 peak, one block an SM at M = 8, with L2 feeding 24 KB per 1 M
-// multiply-adds: 7.9 TB/s. Clusters of 2 run it at 37-38%, 1.05-1.12x
-// faster, and the feed rises to 8.6 TB/s: the gain is the pairing of the
-// blocks, for a cause not measured (two blocks on one item at once, or L2
-// locality). With no key feed at all (a timing-only variant) the work ran
-// at 41-43%: the feed is a fifth of the time, the rest is inside the block
-// (the pipeline's drain and the epilogue of each product). Half of each
-// key tile multicast by TMA to both members (16 KB per 1 M) was no faster
-// than the clusters alone, and slower end to end.
+// What bounds it (an H100 80GB HBM3 at 700 W, the batch-4096 shapes of the
+// benchmark; PERF.md): every product is computed once (executed = useful
+// operations). In 64-row blocks, one an SM at M = 8, the executed work ran
+// at 37-39% of the int8 peak in clusters of 2, with L2 feeding 24 KB per 1
+// M multiply-adds (8.6 TB/s); with no key feed at all (a timing-only
+// variant) at 41-43%, the rest of the time inside the block (the
+// pipeline's drain and the epilogue of each product); at M = 2, two blocks
+// an SM, 40%. The 128-row block runs the cggi128 leaf dots and both
+// parties' unit dots of the 2-party key at 48-50% (0.335 -> 0.267 ms a
+// cggi128 step; 0.489 -> 0.395 and 0.901 -> 0.685 ms the two parties' MK
+// steps), with L2 feeding 16 KB per 1 M at 7.5 TB/s: below the 64-row
+// block's 8.6, so the feed's bandwidth does not bound it yet.
 
 #pragma once
 
@@ -81,26 +103,35 @@
 
 // The dots tables of a C entry's launches, as ops/dots.py:dots_args fills
 // them (its ctypes mirror dots.DotsArgs): the product and target rows and
-// the work items (n_items rows) on the device, the ring's slots, and the
-// blocks of a cluster along the batch tile (1 or 2). A parameter type of
-// the C entries, so outside the anonymous namespace.
+// the blocks' units (n_items rows: a work item of one batch tile each, in
+// launch order) on the device, the ring's slots, the blocks of a cluster
+// along the batch tile (1 or 2), and the batch rows a block owns (64 or
+// 128). A parameter type of the C entries, so outside the anonymous
+// namespace.
 struct DotsArgs {
   const int32_t *products, *targets, *items;
-  int n_items, stages, cluster;
+  int n_items, stages, cluster, row_tile;
 };
 
 namespace {
 
-constexpr int kDotRows = 64;               // batch rows per block: wgmma M
+constexpr int kDotRows = 64;               // a warpgroup's rows: wgmma M
 constexpr int kDotW = 32;                  // coefficients per column tile
 constexpr int kDotN = 4 * kDotW;           // wgmma N: 4 limbs x kDotW
 constexpr int kChunk = 128;                // contraction bytes per ring slot
-constexpr int kATile = kDotRows * kChunk;  // 8 KB
-constexpr int kBTile = kDotN * kChunk;     // 16 KB
-constexpr int kSlotBytes = kATile + kBTile;
-constexpr int kDotThreads = 160;           // consumer warpgroup + producer
+constexpr int kATile = kDotRows * kChunk;  // 8 KB: a warpgroup's digit tile
+constexpr int kBTile = kDotN * kChunk;     // 16 KB: the key tile
 constexpr int kProductInts = 8;            // ints per product row
 constexpr int kItemInts = 4;               // ints per work item row
+constexpr int kUnitInts = 5;               // a work item row and its tile
+
+// A block of WG consumer warpgroups (its batch tile is WG x 64 rows): a
+// ring slot holds the digit tile of all its rows and one key tile, and its
+// threads are the warpgroups and the producer warp.
+__host__ __device__ constexpr int dot_slot_bytes(int wg) {
+  return wg * kATile + kBTile;
+}
+__host__ __device__ constexpr int dot_threads(int wg) { return 128 * wg + 32; }
 
 struct DotsParams {
   int batch, k1, n, m;
@@ -230,42 +261,49 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
 
 // --- the kernel body ---
 
-// A dots launch's block runs one work item of one batch tile (the item
-// index blockIdx.x, the tile blockIdx.y). Other bodies hand dots_body a
-// policy of the same shape for their own units (fused_step.cu).
+// A dots launch's block runs one unit: a work item of one batch tile of
+// WG x 64 rows, the row units[blockIdx.x] = (k*4 + wt, first product, end
+// product, atomic, batch tile), in the launch order of
+// ops/dots.py:launch_order. Other bodies hand dots_body a policy of the
+// same shape for their own units (fused_step.cu).
+template <int WG>
 struct OneItem {
-  const int32_t* items;
+  const int32_t* units;
   __device__ int count() const { return 1; }
   __device__ const int32_t* item(int) const {
-    return items + (size_t)kItemInts * blockIdx.x;
+    return units + (size_t)kUnitInts * blockIdx.x;
   }
-  __device__ int row0(int) const { return blockIdx.y * kDotRows; }
+  __device__ int row0(int) const {
+    return units[(size_t)kUnitInts * blockIdx.x + 4] * WG * kDotRows;
+  }
   __device__ void wait(int) const {}  // the producer's wait for the A rows
 };
 
 // The block's units u < units.count(), each a work item (units.item(u))
-// of the batch tile from units.row0(u) on (see the file comment), one
-// after another through one ring. `items` rows are (k*4 + wt, first
-// product, end product, atomic); `products` rows are (a_off, b_off,
-// npieces, chunks, shift, first target, end target, 0); `targets` rows are
-// (posm, sign). PolyKey: the key holds every output poly and the item's k
-// picks it (single-key); else the key has one poly (multi-key, K = 1) and
-// k only picks acc's column. Fresh: every word of the unit's column tile,
-// all M output blocks, is written once to out = acc + sums (the fused
-// step: out is another buffer, and no other block owns the tile); else the
-// touched blocks' sums are added into acc in place (out == acc), with
-// atomics for a cut column. The producer calls units.wait(u) before it
-// loads unit u's first tiles.
-template <bool PolyKey, bool Fresh, typename Units>
+// of the batch tile of WG x 64 rows from units.row0(u) on (see the file
+// comment), one after another through one ring; consumer warpgroup g owns
+// the tile's rows 64g .. 64g + 63 and its own word sums. `items` rows are
+// (k*4 + wt, first product, end product, atomic); `products` rows are
+// (a_off, b_off, npieces, chunks, shift, first target, end target, 0);
+// `targets` rows are (posm, sign). PolyKey: the key holds every output
+// poly and the item's k picks it (single-key); else the key has one poly
+// (multi-key, K = 1) and k only picks acc's column. Fresh: every word of
+// the unit's column tile, all M output blocks, is written once to out =
+// acc + sums (the fused step: out is another buffer, and no other block
+// owns the tile); else the touched blocks' sums are added into acc in
+// place (out == acc), with atomics for a cut column. The producer calls
+// units.wait(u) before it loads unit u's first tiles.
+template <bool PolyKey, bool Fresh, int WG, typename Units>
 __device__ __forceinline__ void dots_body(
     const CUtensorMap* a_map, const CUtensorMap* b_map,
     const int32_t* acc, int32_t* out, const int32_t* __restrict__ products,
     const int32_t* __restrict__ targets, const Units& units,
     const DotsParams& p) {
+  constexpr int kSlot = dot_slot_bytes(WG);
   extern __shared__ __align__(1024) uint8_t dots_smem[];
   uint8_t* ring = dots_smem;  // stages x (A tile, B tile), 1024-aligned
-  uint32_t* sums = reinterpret_cast<uint32_t*>(ring + p.stages * kSlotBytes);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sums + p.m * 16 * 128);
+  uint32_t* sums0 = reinterpret_cast<uint32_t*>(ring + p.stages * kSlot);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sums0 + WG * p.m * 16 * 128);
   const uint32_t full0 = smem_u32(bars);
   const uint32_t empty0 = smem_u32(bars + p.stages);
   const uint32_t ring0 = smem_u32(ring);
@@ -273,8 +311,8 @@ __device__ __forceinline__ void dots_body(
   if (threadIdx.x == 0) {
     if (ring0 & 1023u) __trap();  // the swizzle needs 1024-aligned slots
     for (int s = 0; s < p.stages; ++s) {
-      mbar_init(full0 + 8 * s, 1);   // the producer's expect_tx arrival
-      mbar_init(empty0 + 8 * s, 4);  // one arrival per consumer warp
+      mbar_init(full0 + 8 * s, 1);  // the producer's expect_tx arrival
+      mbar_init(empty0 + 8 * s, 4 * WG);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -282,9 +320,9 @@ __device__ __forceinline__ void dots_body(
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp >= 4) {  // producer: one thread issues every load; warps past
-                    // it (a fused block's phase-1 helpers) leave
-    if (warp == 4 && lane == 0) {
+  if (warp >= 4 * WG) {  // producer: one thread issues every load; warps
+                         // past it (a fused block's phase-1 helpers) leave
+    if (warp == 4 * WG && lane == 0) {
       int slot = 0;
       uint32_t phase = 0;
       for (int u = 0; u < units.count(); ++u) {
@@ -301,10 +339,10 @@ __device__ __forceinline__ void dots_body(
             for (int c = 0; c < pr[3]; ++c) {
               mbar_wait(empty0 + 8 * slot, phase ^ 1u);
               const uint32_t full = full0 + 8 * slot;
-              const uint32_t a_dst = ring0 + slot * kSlotBytes;
-              mbar_arrive_expect_tx(full, kSlotBytes);
+              const uint32_t a_dst = ring0 + slot * kSlot;
+              mbar_arrive_expect_tx(full, kSlot);
               tma_load_2d(a_dst, a_map, full, a0 + c * kChunk, row0);
-              tma_load_5d(a_dst + kATile, b_map, full, b0 + c * kChunk,
+              tma_load_5d(a_dst + WG * kATile, b_map, full, b0 + c * kChunk,
                           wt * kDotW, 0, key_k, p.step);
               if (++slot == p.stages) {
                 slot = 0;
@@ -318,9 +356,11 @@ __device__ __forceinline__ void dots_body(
     return;
   }
 
-  // consumer warpgroup: threads 0-127; each owns one column of `sums`, so
-  // an item's sums need no barrier between items
-  const int tid = threadIdx.x;
+  // consumer warpgroup g: threads 128g .. 128g + 127; each owns one
+  // column of its warpgroup's `sums`, so an item's sums need no barrier
+  // between items, and the warpgroups run apart but for the ring
+  const int g = threadIdx.x / 128, tid = threadIdx.x % 128;
+  uint32_t* sums = sums0 + (size_t)g * p.m * 16 * 128;
   int slot = 0;
   uint32_t phase = 0;
   int d[64];
@@ -339,9 +379,9 @@ __device__ __forceinline__ void dots_body(
       int prev = -1;
       for (int c = 0; c < n_slots; ++c) {
         mbar_wait(full0 + 8 * slot, phase);
-        const uint32_t a_addr = ring0 + slot * kSlotBytes;
-        const uint64_t da = kmajor_sw128_desc(a_addr);
-        const uint64_t db = kmajor_sw128_desc(a_addr + kATile);
+        const uint32_t a_addr = ring0 + slot * kSlot;
+        const uint64_t da = kmajor_sw128_desc(a_addr + g * kATile);
+        const uint64_t db = kmajor_sw128_desc(a_addr + WG * kATile);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kChunk / 32; ++kk)
@@ -383,9 +423,9 @@ __device__ __forceinline__ void dots_body(
       }
     }
 
-    // each sum into acc (or out) once: rows past the batch are never
-    // written
-    const int r_base = row0 + warp * 16 + lane / 4;
+    // each sum into acc (or out) once: rows past the batch (a whole
+    // warpgroup's, in a batch's last tile) are never written
+    const int r_base = row0 + g * kDotRows + (warp % 4) * 16 + lane / 4;
     const int w_base = wt * kDotW + 2 * (lane % 4);
     for (int posm = 0; posm < p.m; ++posm) {
       if (!Fresh && !((touched >> posm) & 1u)) continue;
@@ -443,14 +483,15 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The digit operand int8[batch, stride]: boxes of 64 rows x 128 bytes.
+// The digit operand int8[batch, stride]: boxes of `rows` rows (a block's
+// batch tile) x 128 bytes.
 inline cudaError_t make_lhs_map(CUtensorMap* map, const int8_t* lhs,
-                                int batch, int stride) {
+                                int batch, int stride, int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)stride, (cuuint64_t)batch};
   const cuuint64_t strides[1] = {(cuuint64_t)stride};
-  const cuuint32_t box[2] = {kChunk, kDotRows};
+  const cuuint32_t box[2] = {kChunk, (cuuint32_t)rows};
   const cuuint32_t one[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, (void*)lhs,
                         dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -481,17 +522,20 @@ inline cudaError_t make_key_map(CUtensorMap* map, const int8_t* key,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-inline size_t dots_smem_bytes(int stages, int m) {
-  return (size_t)stages * kSlotBytes + (size_t)m * 16 * 128 * 4 +
+// A block's dynamic shared memory (ops/dots.py:smem_bytes): the ring, each
+// warpgroup's M blocks' sums, the barriers.
+inline size_t dots_smem_bytes(int stages, int m, int wg) {
+  return (size_t)stages * dot_slot_bytes(wg) + (size_t)wg * m * 16 * 128 * 4 +
          (size_t)2 * stages * 8;
 }
 
-// Everything a step's dots launch needs besides acc and the step index.
+// Everything a step's dots launch needs besides acc and the step index;
+// wg consumer warpgroups a block.
 struct DotsLaunch {
   CUtensorMap a_map, b_map;
   DotsParams p;
   DotsArgs t;
-  int tiles;
+  int wg;
   size_t smem;
 };
 

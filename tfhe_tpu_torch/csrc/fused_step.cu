@@ -168,8 +168,8 @@ fused_step_kernel(const __grid_constant__ CUtensorMap a_map,
   const int tiles = (p.batch + kDotRows - 1) / kDotRows;
   const FusedUnits units = {items, ready, n_cols, (int)blockIdx.x,
                             (int)gridDim.x, tiles * n_cols, p.batch};
-  dots_body<true, true>(&a_map, &b_map, acc, out, products, targets, units,
-                        dp);
+  dots_body<true, true, 1>(&a_map, &b_map, acc, out, products, targets,
+                           units, dp);
 }
 
 struct FusedArgs {
@@ -237,8 +237,9 @@ extern "C" {
 // int8[K, 4, T, total_rows*P*T]. Scratch: lhs, batch x lhs_rows*P*T bytes;
 // ready, int32[ceil(batch / 64)]. tables: the items are n_items = K*4 rows
 // (k*4 + wt, 0, n_products, 0), one per column tile, in plain launches
-// (cluster 1). stage_rows: the rows phase 1 stages at a time. Returns the
-// first CUDA error (0 = none); does not synchronise.
+// (cluster 1) of 64-row batch tiles (row_tile 64). stage_rows: the rows
+// phase 1 stages at a time. Returns the first CUDA error (0 = none); does
+// not synchronise.
 int tfhe_cmux_step_karatsuba(const int32_t* acc, const int8_t* key_step,
                              const int32_t* bara, int32_t* out, int8_t* lhs,
                              int* ready, const StepSizes* sizes,
@@ -247,7 +248,8 @@ int tfhe_cmux_step_karatsuba(const int32_t* acc, const int8_t* key_step,
   Params p;
   cudaError_t err = make_params(p, *sizes);
   if (err != cudaSuccess) return (int)err;
-  if (tables->n_items != p.k1 * 4 || stage_rows < 1)
+  if (tables->n_items != p.k1 * 4 || tables->row_tile != kDotRows ||
+      stage_rows < 1)
     return (int)cudaErrorInvalidValue;
   DotsLaunch dots;
   err = make_dots(dots, *tables, p, lhs, key_step, sizes->total_rows * p.pt,

@@ -21,12 +21,14 @@ it (`utils` imports `api`, which imports `bootstrap`).
   took (`baked`, `dense`, `compact`, `plain`; `mk_compact`, `mk_chunk`,
   `mk_step`, `mk_plain`); `dots.clustered`, one a C entry call whose
   dots launches run in thread-block clusters (`ops/dots.py:dots_args`);
-  `dots.per_sm.<r>`, one a C entry call of the dots by the r blocks (1 or
-  2) an SM holds at its M, for which the work items were cut
-  (`ops/dots.py:blocks_per_sm`); and `built.<table>`, one a cache miss
-  of a cached table or library build (`cached_build`), whose host seconds
-  `seconds()` keeps. `ops.reset_launches()` / `ops.launches()` read the
-  counts, `ops.build_seconds()` the seconds; the entry points log both.
+  `dots.per_sm.<r>`, one a C entry call of the dots by the r 64-row
+  blocks (1 or 2) an SM holds at its M (`ops/dots.py:blocks_per_sm`);
+  `dots.row_tile.<r>`, one a C entry call of the dots by the r batch rows
+  (64 or 128) a block owns (`ops/dots.py:row_tile`); and `built.<table>`,
+  one a cache miss of a cached table or library build (`cached_build`),
+  whose host seconds `seconds()` keeps. `ops.reset_launches()` /
+  `ops.launches()` read the counts, `ops.build_seconds()` the seconds; the
+  entry points log both.
 """
 
 from __future__ import annotations

@@ -20,12 +20,16 @@ the ring depth and the cluster size, puts the rows on the device and fills
 `DotsArgs`, the struct every C entry takes for its dots launches.
 
 Work items. A block owns one column tile (poly k, 32 coefficients, four
-limbs) of one batch tile of 64 rows for all M output blocks, and a range of
-its column's products (`work_items`). A column's products are cut into
-several ranges, whose blocks then add into acc with atomics (exact for
-integers), only where that fills the card better: when the batch is small,
-or when one column has many more products than the others (the multi-key
-columns of the last parties).
+limbs) of one batch tile of 64 or 128 rows (`row_tile`) for all M output
+blocks, and a range of its column's products (`work_items`). A column's
+products are cut into several ranges, whose blocks then add into acc with
+atomics (exact for integers), only where that fills the card better: when
+the batch is small, or when one column has many more products than the
+others (the multi-key columns of the last parties).
+
+Launch order. A launch's blocks run one unit each, a work item of one
+batch tile, in the order of a table (`launch_order`): the heaviest items
+first over all batch tiles, so that no heavy block starts last.
 
 Clusters. The blocks of one work item over different batch tiles read the
 same key tiles in the same order. Where the batch tiles pair up, a launch
@@ -34,9 +38,16 @@ runs them as thread-block clusters of two blocks along the batch tile
 such a call in the `dots.clustered` counter of `instrument`.
 
 Occupancy. The ring and the M blocks' sums set a block's shared memory,
-and so how many blocks an SM holds at once (`blocks_per_sm`: 2 at M <= 4,
-1 from M = 8); the work items are cut for that many. `dots_args` counts each
-call in `dots.per_sm.<r>` by that number r.
+and so how many 64-row blocks an SM holds at once (`blocks_per_sm`: 2 at
+M <= 4, 1 from M = 8); the work items are cut for that many. `dots_args`
+counts each call in `dots.per_sm.<r>` by that number r.
+
+The row tile. A 64-row block has one consumer warpgroup. Where that block
+is alone on its SM anyway, a block of 128 rows runs two warpgroups on each
+key tile it loads (`row_tile`): the key feed per operation falls by a
+third, and one warpgroup's queued products keep the tensor cores busy
+while the other drains its own. `dots_args` counts each call in
+`dots.row_tile.<r>` by the rows r of its tile.
 """
 
 from __future__ import annotations
@@ -51,10 +62,10 @@ import torch
 from ..instrument import cached_build, count
 
 CHUNK = 128  # contraction bytes per ring slot (one 128-byte swizzle row)
-ROW_TILE = 64  # batch rows per block: the wgmma M
+ROW_TILE = 64  # batch rows of a consumer warpgroup: the wgmma M
+WIDE_ROW_TILE = 2 * ROW_TILE  # batch rows of a block of two warpgroups
 COL_TILE = 32  # coefficients per column tile, per limb (wgmma N = 128)
-SLOT_BYTES = (ROW_TILE + 4 * COL_TILE) * CHUNK  # digit tile + key tile
-SUMS_BYTES = ROW_TILE * COL_TILE * 4  # one output block's word sums
+SUMS_BYTES = ROW_TILE * COL_TILE * 4  # a warpgroup's word sums of a block
 _SM_SMEM = 228 * 1024  # shared memory of one SM
 _BLOCK_SMEM = 227 * 1024  # what one block may opt in to
 _RESERVED = 1024  # per block, by the system
@@ -178,29 +189,50 @@ def encode_multi_key(products, k1: int, m: int, pt: int, lt: int,
 # --- launch geometry ---
 
 
-def ring_stages(m: int) -> int:
-    """Ring slots for M output blocks' sums beside the ring: as many as let
-    two blocks share an SM (3 to 6), else as many as one block may use."""
-    sums = m * SUMS_BYTES
+def slot_bytes(row_tile: int = ROW_TILE) -> int:
+    """A ring slot: the digit tile of the block's rows and one key tile."""
+    return (row_tile + 4 * COL_TILE) * CHUNK
+
+
+def ring_stages(m: int, row_tile: int = ROW_TILE) -> int:
+    """Ring slots for the M output blocks' sums of each warpgroup beside the
+    ring: as many as let two blocks share an SM (3 to 6), else as many as
+    one block may use."""
+    sums = m * SUMS_BYTES * (row_tile // ROW_TILE)
     for budget in (_SM_SMEM // 2 - _RESERVED, _BLOCK_SMEM):
-        stages = min(6, (budget - sums - 2 * 6 * 8) // SLOT_BYTES)
+        stages = min(6, (budget - sums - 2 * 6 * 8) // slot_bytes(row_tile))
         if stages >= 3:
             return stages
     raise ValueError(f"M = {m} output blocks' sums ({sums} bytes) leave no "
                      f"room for a 3-slot ring in {_BLOCK_SMEM} bytes of "
-                     "shared memory")
+                     f"shared memory at {row_tile} rows a block")
 
 
-def smem_bytes(m: int, stages: int) -> int:
+def smem_bytes(m: int, stages: int, row_tile: int = ROW_TILE) -> int:
     """A dots block's dynamic shared memory (csrc: dots_smem_bytes)."""
-    return stages * SLOT_BYTES + m * SUMS_BYTES + 2 * stages * 8
+    return (stages * slot_bytes(row_tile)
+            + m * SUMS_BYTES * (row_tile // ROW_TILE) + 2 * stages * 8)
 
 
 def blocks_per_sm(m: int) -> int:
-    """Dots blocks one SM holds at once at M output blocks (1 or 2): as
-    many as its shared memory fits at `ring_stages(m)` slots."""
+    """64-row dots blocks one SM holds at once at M output blocks (1 or 2):
+    as many as its shared memory fits at `ring_stages(m)` slots."""
     return max(1, min(2, _SM_SMEM // (smem_bytes(m, ring_stages(m))
                                       + _RESERVED)))
+
+
+def row_tile(m: int, batch: int) -> int:
+    """The batch rows a dots block owns at M output blocks: 128 (two
+    consumer warpgroups on each key tile) where the 64-row block is alone
+    on its SM anyway, two warpgroups' sums fit beside a ring of 3 slots or
+    more (M <= 8), and the batch has more than one 64-row tile; else 64."""
+    if batch <= ROW_TILE or blocks_per_sm(m) != 1:
+        return ROW_TILE
+    try:
+        ring_stages(m, WIDE_ROW_TILE)
+    except ValueError:
+        return ROW_TILE
+    return WIDE_ROW_TILE
 
 
 def work_items(tables: DotsTables, tiles: int, target_blocks: int) -> tuple:
@@ -236,6 +268,21 @@ def work_items(tables: DotsTables, tiles: int, target_blocks: int) -> tuple:
     return tuple(item for _, item in items)
 
 
+def launch_order(tables: DotsTables, items: tuple, tiles: int,
+                 cluster: int) -> tuple:
+    """The blocks' units in launch order, one row (k*4 + wt, begin, end,
+    atomic, batch tile) a block: the heaviest items first over all batch
+    tiles, so that the grid's last blocks are its lightest and no heavy
+    block starts at the end; then by batch tile, the `cluster` tiles of a
+    cluster side by side, then by item. Items of one weight keep the order
+    of a grid of items by tiles."""
+    weight = [sum(tables.slots(i) for i in range(lo, hi))
+              for _, lo, hi, _ in items]
+    units = sorted((-weight[i], t // cluster, i, t % cluster)
+                   for i in range(len(items)) for t in range(tiles))
+    return tuple((*items[i], g * cluster + r) for _, g, i, r in units)
+
+
 def cluster_size(tiles: int) -> int:
     """Blocks of a thread-block cluster along the batch tile, which run
     one work item together: 2 where the batch tiles pair up, else 1 (a
@@ -263,38 +310,45 @@ def _device_rows(tables: DotsTables, device: str):
 
 @cached_build("device_items")
 def _device_items(tables: DotsTables, tiles: int, target_blocks: int,
-                  device: str):
-    items = work_items(tables, tiles, target_blocks)
-    return int_table(items, device), len(items)
+                  cluster: int, device: str):
+    units = launch_order(tables, work_items(tables, tiles, target_blocks),
+                         tiles, cluster)
+    return int_table(units, device), len(units)
 
 
 class DotsArgs(ctypes.Structure):
     """The dots tables of a C entry's launches (csrc/dots_sm90.cuh:
-    DotsArgs): the product and target rows and the work items (n_items
-    rows) on the device, the ring's slots, and the blocks of a cluster
-    along the batch tile. The device rows are held by the caches of this
+    DotsArgs): the product and target rows and the blocks' units in launch
+    order (`launch_order`, n_items rows) on the device, the ring's slots,
+    the blocks of a cluster along the batch tile, and the batch rows of a
+    block (`row_tile`). The device rows are held by the caches of this
     module."""
 
     _fields_ = [("products", ctypes.c_void_p), ("targets", ctypes.c_void_p),
                 ("items", ctypes.c_void_p), ("n_items", ctypes.c_int),
-                ("stages", ctypes.c_int), ("cluster", ctypes.c_int)]
+                ("stages", ctypes.c_int), ("cluster", ctypes.c_int),
+                ("row_tile", ctypes.c_int)]
 
 
 def dots_args(tables: DotsTables, batch: int, device: torch.device,
               calls: int = 1) -> DotsArgs:
     """What every C entry takes for its dots launches, the tables on
     `device`, for `calls` C calls at this batch; counts the clustered calls
-    in `dots.clustered`, and every call in `dots.per_sm.<r>` by the blocks
-    an SM holds."""
+    in `dots.clustered`, and every call in `dots.per_sm.<r>` by the 64-row
+    blocks an SM holds and in `dots.row_tile.<r>` by the rows of its tile.
+    The work items are cut for two waves of 64-row warpgroups: a 128-row
+    block counts as two."""
     dev = str(device)
     per_sm = blocks_per_sm(tables.m)
+    rows = row_tile(tables.m, batch)
     count(f"dots.per_sm.{per_sm}", calls)
-    tiles = -(-batch // ROW_TILE)
+    count(f"dots.row_tile.{rows}", calls)
+    tiles = -(-batch // rows)
     cluster = cluster_size(tiles)
     if cluster > 1:
         count("dots.clustered", calls)
     products, targets = _device_rows(tables, dev)
-    items, n_items = _device_items(tables, tiles,
-                                   _WAVES * per_sm * _sm_count(dev), dev)
-    return DotsArgs(products.data_ptr(), targets.data_ptr(), items.data_ptr(),
-                    n_items, ring_stages(tables.m), cluster)
+    target = _WAVES * per_sm * _sm_count(dev) * ROW_TILE // rows
+    units, n_units = _device_items(tables, tiles, target, cluster, dev)
+    return DotsArgs(products.data_ptr(), targets.data_ptr(), units.data_ptr(),
+                    n_units, ring_stages(tables.m, rows), cluster, rows)

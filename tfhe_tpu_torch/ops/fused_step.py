@@ -141,7 +141,7 @@ def cmux_step_karatsuba_kernel(acc: torch.Tensor, e_step: torch.Tensor,
                                                            str(acc.device))
         tables = dots.DotsArgs(products.data_ptr(), targets.data_ptr(),
                                items.data_ptr(), n_items,
-                               dots.ring_stages(m), 1)
+                               dots.ring_stages(m), 1, dots.ROW_TILE)
         ready = torch.empty((-(-bsz // dots.ROW_TILE),), dtype=torch.int32,
                             device=acc.device)
         with span("tfhe.enqueue"):
