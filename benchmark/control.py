@@ -23,11 +23,13 @@ from .run import Manifest, log, run_cell
 
 
 class ControlProgram:
-    """Stands in for `system.System`: the gate is the reference at
-    float32 over the whole batch, from the same raw key material."""
+    """Stands in for `system.System`: the unit of work is the unit's
+    reference at float32 over the whole batch, from the same raw key
+    material."""
 
-    def __init__(self, p: dict, keys: dict, setup: dict):
+    def __init__(self, p: dict, keys: dict, setup: dict, unit):
         self.ref = reference_for(p, keys, torch.float32)
+        self.unit = unit
         self.key_tensors = list(keys.values())
         self.form = "control: the reference in float32"
 
@@ -40,7 +42,7 @@ class ControlProgram:
         return a, b
 
     def gate(self, x, y):
-        return self.ref.nand(x[0], x[1], y[0], y[1])
+        return self.unit.reference(self.ref, *x, *y)
 
     @staticmethod
     def words(sample):

@@ -1,7 +1,8 @@
 """Every input of a run, drawn from its seed in plain torch.
 
-The keys and the raw key material of a configuration (`draw_keys`) and the
-plaintext bits and ciphertexts of its traffic (`encrypt`). One
+The keys and the raw key material of a configuration (`draw_keys`), the
+ciphertexts of its traffic's phases (`encrypt`; the unit of work encodes
+its plaintexts as phases) and the decryption back to phases (`phase`). One
 `torch.Generator` on the run's device, seeded with `--seed`, draws them in
 a few large calls, so the same seed gives the same inputs on that device.
 The program receives the raw material (`benchmark/system.py`), and the
@@ -88,27 +89,27 @@ def draw_keys(p: dict, gen: torch.Generator) -> dict:
         ks_a=ks_a, ks_noise=ks_noise)
 
 
-def encrypt(p: dict, keys: dict, bits: torch.Tensor,
+def encrypt(p: dict, keys: dict, phases: torch.Tensor,
             gen: torch.Generator):
-    """Fresh encryptions of bits[...] as +-1/8: int32 (a, b) with
-    a [..., n] (cggi) or [..., P, n] (mktfhe) and b [...]."""
-    mu = torch.where(bits.to(gen.device).bool(), 1 << 29, -(1 << 29))
-    noise = _noise(gen, p["lwe_noise_stddev"], tuple(bits.shape))
+    """Fresh encryptions of the torus phases[...] (int32): int32 (a, b)
+    with a [..., n] (cggi) or [..., P, n] (mktfhe) and b [...]."""
+    mu = phases.to(gen.device, torch.int64)
+    noise = _noise(gen, p["lwe_noise_stddev"], tuple(phases.shape))
     if p["scheme"] == "cggi":
         key = keys["lwe_key"]
-        a = _uniform(gen, tuple(bits.shape) + (p["lwe_size"],))
+        a = _uniform(gen, tuple(phases.shape) + (p["lwe_size"],))
         dots = (a.to(torch.int64) * key.to(torch.int64)).sum(-1)
     else:
         key = keys["lwe_keys"]
-        a = _uniform(gen, tuple(bits.shape) + tuple(key.shape))
+        a = _uniform(gen, tuple(phases.shape) + tuple(key.shape))
         dots = (a.to(torch.int64) * key.to(torch.int64)).sum((-1, -2))
     return a, wrap32(mu + noise.to(torch.int64) + dots)
 
 
-def phase_bits(p: dict, keys: dict, a: torch.Tensor,
-               b: torch.Tensor) -> torch.Tensor:
-    """Decryption: the sign of b - <a, s> (bool[...])."""
+def phase(p: dict, keys: dict, a: torch.Tensor,
+          b: torch.Tensor) -> torch.Tensor:
+    """Decryption to the phase b - <a, s> (int32[...])."""
     key = keys["lwe_key" if p["scheme"] == "cggi" else "lwe_keys"]
     dims = (-1,) if p["scheme"] == "cggi" else (-1, -2)
     dots = (a.to(torch.int64) * key.to(a.device, torch.int64)).sum(dims)
-    return wrap32(b.to(torch.int64) - dots) > 0
+    return wrap32(b.to(torch.int64) - dots)

@@ -1,8 +1,9 @@
 """Host microseconds a rotation step takes to enqueue: the program's
 `tfhe.enqueue` spans (the rotation wrappers' C calls, which enqueue the
 rotation's launches) of each traced request, over the steps of a
-rotation (`benchmark/counts.py`); the mean over the requests (closed
-loop). Below the card's time a step, the host keeps ahead."""
+rotation (`benchmark/counts.py`) times the `rotations_per_row` of the
+unit of work; the mean over the requests (closed loop). Below the card's
+time a step, the host keeps ahead."""
 
 import bisect
 
@@ -24,5 +25,5 @@ def read(run):
             per_unit[u] = per_unit.get(u, 0.0) + (end - start)
     if len(per_unit) != len(view.units):
         return None
-    steps = counts.steps_per_rotation(run.config)
+    steps = run.rotations_per_row * counts.steps_per_rotation(run.config)
     return sum(per_unit.values()) / (len(per_unit) * steps)

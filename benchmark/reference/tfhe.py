@@ -1,9 +1,12 @@
-"""Plain reference of the bootstrapped NAND gate, single-key and multi-key.
+"""Plain reference of the bootstrap, single-key and multi-key.
 
 A batched rewrite, in plain torch, of the NumPy spec of TFHE gate
-bootstrapping and of MK-TFHE (Chen-Chillotti-Song): the NAND combination,
-the modulus switch to 2N, the blind rotation by CMUX steps against the
-coefficient-domain TGSW key, the sample extraction and the LWE keyswitch.
+bootstrapping and of MK-TFHE (Chen-Chillotti-Song): the modulus switch to
+2N, the blind rotation by CMUX steps against the coefficient-domain TGSW
+key, the sample extraction and the LWE keyswitch. The single-key
+bootstrap takes any test polynomial (a gate's constant, a lookup table),
+so a unit of work (`benchmark/units/`) writes its reference against it;
+the NAND gate is its first caller, and the MK reference's own.
 It starts from the raw key material that the benchmark draws from its seed
 (`benchmark/inputs.py`) and works out everything else itself: the TGSW key
 as TGSW samples, the keyswitch bodies, and for MK the public keys, the
@@ -167,9 +170,9 @@ def tgsw_rows(gsw: torch.Tensor) -> torch.Tensor:
 
 
 class CggiReference:
-    """The single-key NAND gate bootstrap from raw material:
-    raw = {"lwe_key", "tlwe_key", "gsw", "ks_a", "ks_noise"} (see
-    `benchmark/inputs.py`), p = the configuration's numbers."""
+    """The single-key bootstrap from raw material: raw = {"lwe_key",
+    "tlwe_key", "gsw", "ks_a", "ks_noise"} (see `benchmark/inputs.py`),
+    p = the configuration's numbers."""
 
     def __init__(self, p: dict, raw: dict, dtype=torch.float64):
         self.p, self.dtype = p, dtype
@@ -181,32 +184,47 @@ class CggiReference:
                                      raw["tlwe_key"].reshape(-1),
                                      raw["lwe_key"], p["ks_log2_base"])
 
-    def nand(self, x_a, x_b, y_a, y_b):
-        """NAND(x, y) = bootstrap((0, 1/8) - x - y): int32 (a[S, n], b[S])."""
+    def bootstrap(self, c_a, c_b, test_vector, barb_offset: int = 0,
+                  q: int = 1):
+        """LWE(test_vector[p]) with p = barb + barb_offset - <bara, s> mod
+        2N, keyswitched: c_a int32[S, n], c_b int32[S], test_vector
+        int32[S, N] -> int32 (a[S, n], b[S]). With q > 1 (many-LUT) the
+        modulus switch rounds to the 2N/q grid and coefficients 0..q-1 of
+        the rotated accumulator are extracted: (a[S, q, n], b[S, q])."""
         p, dtype = self.p, self.dtype
         n_poly, k = p["tlwe_polynomial_degree"], p["tlwe_mask_size"]
-        c_a = wrap32(-x_a.to(torch.int64) - y_a.to(torch.int64))
-        c_b = wrap32((1 << 29) - x_b.to(torch.int64) - y_b.to(torch.int64))
-        bara = mod_switch(c_a, 2 * n_poly)  # [S, n]
-        barb = mod_switch(c_b, 2 * n_poly)
+        bara = mod_switch(c_a, 2 * n_poly // q) * q  # [S, n]
+        barb = mod_switch(c_b, 2 * n_poly // q) * q + barb_offset
         s = c_b.shape[0]
         acc = torch.zeros((s, k + 1, n_poly), dtype=torch.int32,
                           device=c_b.device)
-        test = torch.full((s, n_poly), 1 << 29, dtype=torch.int32,
-                          device=c_b.device)
-        acc[:, k] = mul_by_monomial(test, -barb)
+        acc[:, k] = mul_by_monomial(test_vector, -barb)
         for step in range(self.key.shape[0]):
             acc = cmux_rotate(acc, bara[:, step], self.key[step],
                               p["bs_decomp_length"], p["bs_log2_base"],
                               p["gadget_balanced"], dtype)
-        ext_a = reverse_polynomial(acc[:, :k]).reshape(s, k * n_poly)
-        ext_b = acc[:, k, 0]
+        # coefficient r of acc is coefficient 0 of acc * X^-r
+        acc = torch.stack([acc] + [mul_by_monomial(acc, torch.full(
+            (s,), -r, device=c_b.device)) for r in range(1, q)], 1)
+        ext_a = reverse_polynomial(acc[:, :, :k]).reshape(s * q, k * n_poly)
+        ext_b = acc[:, :, k, 0].reshape(s * q)
         sums = keyswitch(self.table, ext_a, p["ks_decomp_length"],
                          p["ks_log2_base"], dtype)
         n_out = sums.shape[1] - 1
         out_a = wrap32(-sums[:, :n_out].to(torch.int64))
         out_b = wrap32(ext_b.to(torch.int64) - sums[:, n_out].to(torch.int64))
-        return out_a, out_b
+        if q == 1:
+            return out_a, out_b
+        return out_a.reshape(s, q, n_out), out_b.reshape(s, q)
+
+    def nand(self, x_a, x_b, y_a, y_b):
+        """NAND(x, y) = bootstrap((0, 1/8) - x - y) of the constant test
+        polynomial 1/8: int32 (a[S, n], b[S])."""
+        c_a = wrap32(-x_a.to(torch.int64) - y_a.to(torch.int64))
+        c_b = wrap32((1 << 29) - x_b.to(torch.int64) - y_b.to(torch.int64))
+        test = torch.full((c_b.shape[0], self.p["tlwe_polynomial_degree"]),
+                          1 << 29, dtype=torch.int32, device=c_b.device)
+        return self.bootstrap(c_a, c_b, test)
 
 
 # --- multi-key (MK-TFHE) ---

@@ -4,15 +4,16 @@
         --seconds 40 --trace 0
 
 From the root of a checkout. `BENCHMARK.json` names the cells; a cell's
-traffic is `benchmark/workloads/<cell>.json`, its configuration
+traffic is `benchmark/workloads/<cell>.json`, its unit of work (the
+traffic's `gate`) `benchmark/units/<gate>.py`, its configuration
 `benchmark/configs/<config>.json`, and each metric's reader
-`benchmark/metrics/<metric>.py`: adding a cell, a configuration or a
-metric adds files and entries and edits nothing here.
+`benchmark/metrics/<metric>.py`: adding a cell, a unit of work, a
+configuration or a metric adds files and entries and edits nothing here.
 
 A run: set-up (kernel build on a checkout's first run, then load; the key
 material from the seed; the program's cloud key from it; the operand
 pool; one warm unit), the window of `--seconds`, then the comparison with
-the plain reference on a sample of the window's gates. With `--trace 1` a
+the plain reference on a sample of the window's rows. With `--trace 1` a
 short stretch before the window runs under torch.profiler and the run
 reports the cell's per-layer metrics instead of its end-to-end ones. The
 last line on stdout is the result as one JSON object; the set-up split,
@@ -66,13 +67,43 @@ def load_json(kind: str, name: str, bench: Path = BENCH) -> dict:
         return json.load(f)
 
 
-def load_reader(name: str):
-    path = BENCH / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "benchmark.metrics." + name.replace(".", "_"), path)
+def _load_module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def load_reader(name: str):
+    return _load_module(BENCH / "metrics" / f"{name}.py",
+                        "benchmark.metrics." + name.replace(".", "_"))
+
+
+def load_unit(gate: str, bench: Path = BENCH):
+    """The unit of work `gate`: `units/<gate>.py` of the cell's bench
+    directory, else of `benchmark/`. A unit file supplies:
+
+    * `draw(gen, shape)`: plaintexts, one a row, [*shape], from a CPU
+      `torch.Generator`;
+    * `phase(plain)`: their torus phases, int32 [*plain.shape, *row]; the
+      row shape it adds is that of a row's bodies, so a batch of rows is a
+      ciphertext with `b` [*batch, *row] and `a` [*batch, *row, n] (single
+      key) or [*batch, *row, P, n] (P parties);
+    * `apply(x, y)`: the plaintext function of the two operands;
+    * `decrypt(phase)`: the plaintexts of output rows from their phases
+      [..., *row];
+    * `program(scheme)`: the timed call of the port, f(cloud key, x, y),
+      for the configuration's `scheme` (`cggi`, `mktfhe`);
+    * `reference(ref, x_a, x_b, y_a, y_b)`: the output words (a, b)
+      recomputed by the plain reference of `benchmark/reference/tfhe.py`,
+      from the operands' words;
+    * `rotations_per_row(p)`: the blind rotations one row of one unit
+      runs under configuration `p`.
+    """
+    path = bench / "units" / f"{gate}.py"
+    if not path.exists():
+        path = BENCH / "units" / f"{gate}.py"
+    return _load_module(path, "benchmark.units." + gate)
 
 
 class Manifest:
@@ -139,6 +170,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     manifest = manifest or Manifest.load()
     w = load_json("workloads", cell, bench)
     p = load_json("configs", w["config"], bench)
+    unit = load_unit(w["gate"], bench)
     dev = torch.device(device)
     clock = Clock(dev)
     setup = {"process_start_to_setup_s": since_start()}
@@ -153,11 +185,11 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     keys = inputs.draw_keys(p, gen)
     clock.sync()
     setup["key_material_s"] = time.perf_counter() - t
-    prog = (program or system.System)(p, keys, setup)
+    prog = (program or system.System)(p, keys, setup, unit)
     t = time.perf_counter()
-    traffic = make_traffic(w, seed)
-    pool_words = inputs.encrypt(p, keys, traffic.pool_bits, gen)
-    x0_words = inputs.encrypt(p, keys, traffic.first_bits, gen)
+    traffic = make_traffic(w, seed, unit)
+    pool_words = inputs.encrypt(p, keys, unit.phase(traffic.pool), gen)
+    x0_words = inputs.encrypt(p, keys, unit.phase(traffic.first), gen)
     pool = [prog.wrap(pool_words[0][i], pool_words[1][i])
             for i in range(w["pool"])]
     x = prog.wrap(*x0_words)
@@ -168,7 +200,9 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
 
     def to_host(out):
         a, b = prog.words(out)
-        return torch.cat([a.reshape(1, -1), b.reshape(1, 1)], dim=1).cpu()[0]
+        rows = w["batch"]
+        return torch.cat([a.reshape(rows, -1), b.reshape(rows, -1)],
+                         dim=1).cpu()
 
     t = time.perf_counter()
     warm = prog.gate(x, pool[traffic.slot(0)])
@@ -184,7 +218,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     units = 0
     latencies = []
 
-    def unit(span):
+    def step(span):
         nonlocal x, units
         y = pool[traffic.slot(units)]
         if chained:
@@ -209,13 +243,13 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     view, launches = None, {}
     setup_s = since_start()
     if trace:
-        view, launches = traced_stretch(unit, w["trace_units"], clock,
+        view, launches = traced_stretch(step, w["trace_units"], clock,
                                         system)
         latencies.clear()
     t0 = time.perf_counter()
     first = units
     while True:
-        unit(no_span)
+        step(no_span)
         if time.perf_counter() - t0 >= seconds:
             break
     clock.sync()
@@ -234,6 +268,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
 
     run = types.SimpleNamespace(
         cell=cell, config=p, workload=w, batch=w["batch"], loop=w["loop"],
+        rotations_per_row=unit.rotations_per_row(p),
         setup_s=setup_s, window_s=window_s, units=timed_units,
         latencies_s=latencies, mem_peak_bytes=mem_peak, key_bytes=key_bytes,
         trace=view, launches=launches)
@@ -248,7 +283,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     log("set-up: " + ", ".join(f"{k} {v:.3f}" for k, v in setup.items())
         + f"; setup_s {setup_s:.3f}")
     log(f"window: {timed_units} units in {window_s:.3f} s; compared "
-        f"{compared} gates with the reference in {check_s:.1f} s")
+        f"{compared} rows with the reference in {check_s:.1f} s")
     if trace:
         log(f"traced stretch: {w['trace_units']} units, launches {launches}")
     correct = all(checks[k] <= LIMITS[k] for k in LIMITS)
@@ -272,11 +307,11 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     return result
 
 
-def traced_stretch(unit, count: int, clock: Clock, system):
-    """`count` units under torch.profiler, each in a `bench.unit` span and
-    the program's layer calls in theirs; the device is idle at the start
-    and drained at the end. Returns the trace and the wrappers' launch
-    counts."""
+def traced_stretch(step, count: int, clock: Clock, system):
+    """`count` units under torch.profiler, each in a `bench.unit` span
+    (the program opens its own `tfhe.*` spans inside); the device is idle
+    at the start and drained at the end. Returns the trace and the
+    wrappers' launch counts."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from .trace import TraceView
@@ -287,9 +322,9 @@ def traced_stretch(unit, count: int, clock: Clock, system):
     clock.sync()
     wrappers = system.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
-        with profile(activities=activities) as prof, system.layer_spans():
+        with profile(activities=activities) as prof:
             for _ in range(count):
-                unit(record_function)
+                step(record_function)
             clock.wait_behind(0)
             clock.sync()
         launches = system.read_launches(wrappers)

@@ -1,38 +1,28 @@
-"""The system under test: the port's gate API, fed the benchmark's inputs.
+"""The system under test: the port's key set-up and the timed call of the
+cell's unit of work, fed the benchmark's inputs.
 
-The only module of the harness that imports the program. It hands the raw
-key material of `benchmark/inputs.py` to the port's functions that take
-raw material (`bootstrap.bootstrap_key_from_raw`, the keyswitch core, and
-for MK `public_key_core`, `mk_tgsw_encrypt_core` and `mk_bootstrap_key`),
-so that the bake, the K-major relayout and the MK expansion are the
-program's set-up. The timed call is `gates.gate_nand` (single key) or
-`mk.gates.mk_gate_nand`.
+With the unit files' `program` (`benchmark/units/<gate>.py`), the only
+code of the harness that imports the program. It hands the raw key
+material of `benchmark/inputs.py` to the port's functions that take raw
+material (`bootstrap.bootstrap_key_from_raw`, the keyswitch core, and for
+MK `public_key_core`, `mk_tgsw_encrypt_core` and `mk_bootstrap_key`), so
+that the bake, the K-major relayout and the MK expansion are the
+program's set-up. The timed call is the unit's (`gates.gate_nand` or
+`mk.gates.mk_gate_nand` for `nand`).
 """
 
 from __future__ import annotations
 
-import contextlib
-import importlib
 import time
 
 import torch
 
-from tfhe_tpu_torch import api, bootstrap, gates, keyswitch, ops, tuning
+from tfhe_tpu_torch import api, bootstrap, keyswitch, ops, tuning
 from tfhe_tpu_torch.lwe import LweSample
-from tfhe_tpu_torch.mk import gates as mk_gates
 from tfhe_tpu_torch.mk import internals as mk_internals
 from tfhe_tpu_torch.mk.api import MKCloudKey
 from tfhe_tpu_torch.params import SchemeParameters
 
-# The program's layer calls that the traced run wraps in spans: (module,
-# function, span). Each is looked up by its caller at call time, so the
-# wrapper sees every call.
-LAYER_CALLS = (
-    ("tfhe_tpu_torch.bootstrap", "blind_rotate", "layer.rotation"),
-    ("tfhe_tpu_torch.bootstrap", "keyswitch", "layer.keyswitch"),
-    ("tfhe_tpu_torch.mk.internals", "mk_blind_rotate", "layer.rotation"),
-    ("tfhe_tpu_torch.mk.internals", "mk_keyswitch", "layer.keyswitch"),
-)
 _FIELDS = ("lwe_size", "lwe_noise_stddev", "tlwe_polynomial_degree",
            "tlwe_mask_size", "bs_decomp_length", "bs_log2_base",
            "bs_noise_stddev", "ks_decomp_length", "ks_log2_base",
@@ -52,29 +42,6 @@ def use_tuning(p: dict) -> None:
     tuning.set_tuning(tuning.TuningConfig(**p.get("tuning", {})))
 
 
-@contextlib.contextmanager
-def layer_spans():
-    """Wrap the program's layer calls in profiler spans (`LAYER_CALLS`)."""
-    saved = []
-    for mod_name, attr, span in LAYER_CALLS:
-        mod = importlib.import_module(mod_name)
-        fn = getattr(mod, attr, None)
-        if fn is None:
-            continue
-
-        def wrapped(*args, _fn=fn, _span=span, **kwargs):
-            with torch.profiler.record_function(_span):
-                return _fn(*args, **kwargs)
-
-        saved.append((mod, attr, fn))
-        setattr(mod, attr, wrapped)
-    try:
-        yield
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
-
-
 def reset_launches() -> dict:
     return ops.reset_launches()
 
@@ -85,11 +52,13 @@ def read_launches(wrappers: dict) -> dict:
 
 class System:
     """One configuration's cloud key, made by the program from the raw key
-    material; `setup` records the seconds of each part."""
+    material, and the unit of work's timed call; `setup` records the
+    seconds of each part."""
 
-    def __init__(self, p: dict, keys: dict, setup: dict):
+    def __init__(self, p: dict, keys: dict, setup: dict, unit):
         self.p = p
         self.scheme = p["scheme"]
+        self.call = unit.program(self.scheme)
         params = SchemeParameters(**{f: p[f] for f in _FIELDS})
         sync = _sync_for(keys["lwe_key" if self.scheme == "cggi"
                               else "lwe_keys"].device)
@@ -158,10 +127,8 @@ class System:
         return mk_internals.MKLweSample(a, b, cv)
 
     def gate(self, x, y):
-        """The timed call: one NAND layer over the batch."""
-        if self.scheme == "cggi":
-            return gates.gate_nand(self.ck, x, y)
-        return mk_gates.mk_gate_nand(self.ck, x, y)
+        """The timed call: one unit of work over the batch."""
+        return self.call(self.ck, x, y)
 
     @staticmethod
     def words(sample):

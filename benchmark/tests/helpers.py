@@ -6,11 +6,12 @@ from pathlib import Path
 
 import torch
 
-from benchmark.run import Manifest, run_cell
+from benchmark.run import Manifest, load_unit, run_cell
 
 DATA = Path(__file__).resolve().parent / "data"
 SEED = 2**31 + 4242  # past 32 signed bits, as a check's seeds may be
 NO_METRICS = Manifest({"workloads": [], "end_to_end": [], "per_layer": []})
+NAND = load_unit("nand")
 
 
 def run_toy(cell: str, program=None, seconds: float = 0.2,

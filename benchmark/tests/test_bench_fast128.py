@@ -17,7 +17,7 @@ from benchmark import counts, inputs, system
 from benchmark.control import ControlProgram
 from benchmark.reference import tfhe as ref
 from benchmark.run import Manifest, load_json, load_reader
-from benchmark.tests.helpers import DATA, run_toy
+from benchmark.tests.helpers import DATA, NAND, run_toy
 from benchmark.tests.test_bench_faults import AlteredAnswer, FlippedAnswer
 
 CELL = "fast128.nand_b4096"
@@ -48,17 +48,17 @@ def test_reference_equals_the_port_gate_at_the_geometry():
     gen = torch.Generator().manual_seed(2**31 + 128)
     keys = inputs.draw_keys(p, gen)
     system.use_tuning(p)
-    prog = system.System(p, keys, {})
+    prog = system.System(p, keys, {}, NAND)
     bk = prog.ck.bootstrap_key
     assert bk.depth == 1 and bk.plan.total_rows == 3
     assert tuple(bk.baked.shape) == (p["lwe_size"], 3 * 10 * 128, 5 * 4 * 128)
     bits = torch.randint(0, 2, (2, 6), generator=gen).bool()
-    x = inputs.encrypt(p, keys, bits[0], gen)
-    y = inputs.encrypt(p, keys, bits[1], gen)
+    x = inputs.encrypt(p, keys, NAND.phase(bits[0]), gen)
+    y = inputs.encrypt(p, keys, NAND.phase(bits[1]), gen)
     out_a, out_b = prog.words(prog.gate(prog.wrap(*x), prog.wrap(*y)))
     want_a, want_b = ref.reference_for(p, keys).nand(*x, *y)
     assert torch.equal(out_a, want_a) and torch.equal(out_b, want_b)
-    assert torch.equal(inputs.phase_bits(p, keys, want_a, want_b),
+    assert torch.equal(NAND.decrypt(inputs.phase(p, keys, want_a, want_b)),
                        ~(bits[0] & bits[1]))
 
 
@@ -123,7 +123,8 @@ def test_the_manifest_finds_the_cell():
     assert {m["name"] for m in man.metrics(CELL, True)} == {
         "key_gib", "rotation_ms_per_layer.b4096",
         "keyswitch_ms_per_layer.b4096", "dots_roofline_pct.b4096",
-        "device_idle_pct.b4096", "dots_blocks_per_sm.b4096"}
+        "device_idle_pct.b4096", "dots_blocks_per_sm.b4096",
+        "dots_row_tile.b4096"}
     for cell in ("cggi128.nand_b4096", "mk2.nand_b4096"):
         assert "dots_blocks_per_sm.b4096" in \
             {m["name"] for m in man.metrics(cell, True)}

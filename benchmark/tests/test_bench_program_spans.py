@@ -36,7 +36,6 @@ def _events():
             _x(span, "tfhe.gate", t0 + 10, 790),
             _x(span, "tfhe.modswitch", t0 + 50, 50),
             _x("cuda_runtime", "cudaLaunchKernel", t0 + 60, 5, corr=c + 1),
-            _x(span, "layer.rotation", t0 + 105, 300),
             _x(span, "tfhe.rotation", t0 + 110, 290),
             _x("cuda_runtime", "cudaLaunchKernel", t0 + 120, 5, corr=c + 2),
             _x(span, "tfhe.enqueue", t0 + 150, 40),
@@ -68,7 +67,8 @@ def _events():
 def _run(events, loop="closed"):
     cfg = {"scheme": "cggi", "lwe_size": 2}
     return types.SimpleNamespace(trace=TraceView(events), loop=loop,
-                                 config=cfg, batch=1, units=2)
+                                 config=cfg, batch=1, units=2,
+                                 rotations_per_row=1)
 
 
 def read(name, run):
@@ -104,8 +104,10 @@ def test_none_on_the_chained_loop(name):
 
 @pytest.mark.parametrize("name", READERS)
 def test_none_without_the_program_spans(name):
-    """The parent's trace: the harness's spans alone."""
-    assert read(name, _run(_harness_events())) is None
+    """A trace of the harness's `bench.unit` spans alone."""
+    events = [e for e in _harness_events()
+              if not e["name"].startswith("tfhe.")]
+    assert read(name, _run(events)) is None
 
 
 @pytest.mark.parametrize("name", READERS)

@@ -13,7 +13,7 @@ import torch
 
 from benchmark import counts, inputs, stats, system
 from benchmark.reference import tfhe as ref
-from benchmark.tests.helpers import DATA
+from benchmark.tests.helpers import DATA, NAND
 from spec import oracle
 
 
@@ -31,14 +31,14 @@ def test_reference_equals_the_port_gate(name):
     gen = torch.Generator().manual_seed(2**31 + 17)
     keys = inputs.draw_keys(p, gen)
     system.use_tuning(p)
-    prog = system.System(p, keys, {})
+    prog = system.System(p, keys, {}, NAND)
     bits = torch.randint(0, 2, (2, 6), generator=gen).bool()
-    x = inputs.encrypt(p, keys, bits[0], gen)
-    y = inputs.encrypt(p, keys, bits[1], gen)
+    x = inputs.encrypt(p, keys, NAND.phase(bits[0]), gen)
+    y = inputs.encrypt(p, keys, NAND.phase(bits[1]), gen)
     out_a, out_b = prog.words(prog.gate(prog.wrap(*x), prog.wrap(*y)))
     want_a, want_b = ref.reference_for(p, keys).nand(*x, *y)
     assert torch.equal(out_a, want_a) and torch.equal(out_b, want_b)
-    assert torch.equal(inputs.phase_bits(p, keys, want_a, want_b),
+    assert torch.equal(NAND.decrypt(inputs.phase(p, keys, want_a, want_b)),
                        ~(bits[0] & bits[1]))
 
 

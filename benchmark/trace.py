@@ -3,10 +3,10 @@
 Device operations are the trace's kernels, copies and sets. Each is tied
 to the host call that launched it (the `correlation` shared by the
 runtime call and the device event), and through that call's time to the
-spans around it: the harness's `bench.unit` span around each traced gate
-layer or request, and the `layer.*` spans around the program's layer
-calls (`benchmark/system.py:layer_spans`). Times are microseconds on the
-trace's clock, which holds host and device events alike.
+spans around it: the harness's `bench.unit` span around each traced
+layer or request, and the program's own `tfhe.*` spans
+(`tfhe_tpu_torch/instrument.py`), which may nest. Times are microseconds
+on the trace's clock, which holds host and device events alike.
 """
 
 from __future__ import annotations
@@ -22,10 +22,18 @@ UNIT_SPAN = "bench.unit"
 
 
 class Intervals:
-    """Disjoint [start, end] spans of one name, found by time."""
+    """The union of the [start, end] spans of one name, as disjoint
+    spans found by time: a span nested in or overlapping another of its
+    name is merged into it."""
 
     def __init__(self, spans):
-        self.spans = sorted(spans)
+        self.spans = []
+        for start, end in sorted(spans):
+            if self.spans and start <= self.spans[-1][1]:
+                self.spans[-1] = (self.spans[-1][0],
+                                  max(self.spans[-1][1], end))
+            else:
+                self.spans.append((start, end))
         self.starts = [s for s, _ in self.spans]
 
     def find(self, t: float):

@@ -1,12 +1,15 @@
-"""The one traffic generator: a workload file's parameters and a seed give
-the plaintext bits, the operand pool and the order of the work.
+"""The one traffic generator: a workload file's parameters, its unit of
+work and a seed give the plaintexts, the operand pool and the order of the
+work.
 
 A workload file (`benchmark/workloads/<cell>.json`) holds:
 
 * `config`: the configuration's name;
-* `gate`: the gate every unit runs (`nand`);
-* `batch`: gates a unit runs together;
-* `loop`: `chained` (each unit is a layer of `batch` gates on the previous
+* `gate`: the unit of work, the file `units/<gate>.py` (`nand`; see
+  `benchmark/run.py:load_unit`): it draws the plaintexts and computes
+  what each row's output decrypts to;
+* `batch`: rows a unit runs together;
+* `loop`: `chained` (each unit is a layer of `batch` rows on the previous
   layer's outputs, layers kept queued, the window's rate is the metric)
   or `closed` (one client: each unit is a request, issued when the last
   one's output is on the host, the latencies are the metric);
@@ -15,16 +18,17 @@ A workload file (`benchmark/workloads/<cell>.json`) holds:
 * `period`: units after which the drawn order repeats;
 * `keep_rows` (chained): rows of each layer whose operands and outputs are
   kept for the comparison with the reference;
-* `check_sample`: gates the reference recomputes after the window;
+* `check_sample`: rows the reference recomputes after the window;
 * `trace_units`: units the traced run profiles.
 
-Every seed gives the same sizes and the same amount of work; only the bits,
-the order of the pool and the kept rows change.
+Every seed gives the same sizes and the same amount of work; only the
+plaintexts, the order of the pool and the kept rows change.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import torch
 
@@ -35,8 +39,9 @@ LOOPS = ("chained", "closed")
 class Traffic:
     loop: str
     batch: int
-    first_bits: torch.Tensor  # bool[batch]: the first unit's first operand
-    pool_bits: torch.Tensor  # bool[pool, batch]
+    unit: types.ModuleType
+    first: torch.Tensor  # [batch]: the first unit's first operand
+    pool: torch.Tensor  # [pool, batch]
     slots: list  # pool slot of unit u % period
     rows: torch.Tensor  # int64[period, keep_rows]: rows kept of unit u
 
@@ -44,24 +49,24 @@ class Traffic:
         return self.slots[u % len(self.slots)]
 
     def expected(self, units: int) -> torch.Tensor:
-        """bool[units, batch]: the plaintext of every unit's output,
-        NAND(previous output, pool bits)."""
-        out, x = [], self.first_bits
+        """[units, batch]: the plaintext of every unit's output, the unit's
+        function of the previous output and the pool's plaintexts."""
+        out, x = [], self.first
         for u in range(units):
-            x = ~(x & self.pool_bits[self.slot(u)])
+            x = self.unit.apply(x, self.pool[self.slot(u)])
             out.append(x)
-        return torch.stack(out) if out else torch.zeros(
-            (0, self.batch), dtype=torch.bool)
+        return torch.stack(out) if out else self.first.new_empty(
+            (0, self.batch))
 
 
-def make_traffic(w: dict, seed: int) -> Traffic:
-    if w["loop"] not in LOOPS or w["gate"] != "nand":
-        raise ValueError(f"workload: loop {w['loop']!r}, gate {w['gate']!r}")
+def make_traffic(w: dict, seed: int, unit: types.ModuleType) -> Traffic:
+    if w["loop"] not in LOOPS:
+        raise ValueError(f"workload: loop {w['loop']!r}")
     gen = torch.Generator().manual_seed(seed)
     batch, period = w["batch"], w["period"]
-    first = torch.randint(0, 2, (batch,), generator=gen).bool()
-    pool = torch.randint(0, 2, (w["pool"], batch), generator=gen).bool()
+    first = unit.draw(gen, (batch,))
+    pool = unit.draw(gen, (w["pool"], batch))
     slots = torch.randint(0, w["pool"], (period,), generator=gen).tolist()
     keep = min(w.get("keep_rows", batch), batch)
     rows = torch.randint(0, batch, (period, keep), generator=gen)
-    return Traffic(w["loop"], batch, first, pool, slots, rows)
+    return Traffic(w["loop"], batch, unit, first, pool, slots, rows)
